@@ -1,0 +1,516 @@
+"""The annealing chain.
+
+Heat-bath acceptance (paper sec. 2.2/3):  a proposal ``z`` from ``nu(x)`` is
+accepted with probability
+
+    exp(-max{Y(z) - Y(x), 0} / tau)
+
+i.e. always accepted when the objective does not increase.  Two engines:
+
+* :class:`Annealer` — the *online* engine used by the controllers: one
+  proposal per arriving job, objective evaluated by running (or
+  simulating) the job under the proposed configuration.  This is the
+  paper's operating mode: evaluation *is* execution.  numpy, a copy of the
+  reference's.
+
+* :func:`anneal_fleet` — the batched chain over a precomputed objective
+  table on a full N-dimensional :class:`ConfigSpace` (mixed
+  ordinal/categorical axes, validity masks, time-indexed tables, array
+  temperature schedules with reheats): C chains walk together as one
+  vectorised torch step, with a Python loop over the steps.  Its random
+  draws come from an explicit :class:`torch.Generator`, or are handed in
+  whole through ``draws=`` (the tests replay another engine's draws so the
+  walks can be compared step for step).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import Any, Callable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .neighborhood import (
+    Neighborhood,
+    flat_index,
+    propose_nd,
+    row_major_strides,
+)
+from .schedules import FixedTemperature, Schedule
+from .state import ConfigSpace, EncodedSpace, random_valid_state
+from .tabu import TabuMemory
+
+
+def acceptance_probability(dy: float, tau: float) -> float:
+    """Heat-bath rule: exp(-max(dy, 0)/tau)."""
+    if tau <= 0:
+        return 1.0 if dy <= 0 else 0.0
+    return math.exp(-max(dy, 0.0) / tau)
+
+
+@dataclasses.dataclass
+class Step:
+    """Record of one annealing transition (one job)."""
+
+    n: int
+    proposed: tuple[int, ...]
+    accepted: bool
+    explored: bool            # True if proposal increased Y but was accepted
+    y_proposed: float
+    y_current: float          # Y of the incumbent *after* the step
+    tau: float
+    state: tuple[int, ...]    # incumbent after the step
+
+
+@dataclasses.dataclass
+class ChainSnapshot:
+    """Replayable checkpoint of an online :class:`Annealer` at a transition
+    index: the incumbent, its stored (possibly unmeasured) objective, and
+    the full bit-generator state.  Restoring one rewinds the *walk* — the
+    speculative evaluation pipeline (:mod:`repro.core.evalpipe`) runs the
+    chain ahead of landed measurements and rolls back to the last resolved
+    transition on a misprediction, which is what keeps a pipelined run's
+    realized RNG stream identical to the serial loop's."""
+
+    n: int
+    state: tuple[int, ...]
+    y: float | None
+    rng_state: dict[str, Any]
+
+
+class Annealer:
+    """Online simulated annealing over a ConfigSpace.
+
+    ``evaluate`` maps a *decoded* configuration (and the job index) to the
+    objective value Y_n — in production this runs the job.  Note the paper's
+    subtlety: Y_{n-1} was measured for the *previous* job; under workload
+    drift the incumbent's objective is stale, which is precisely what allows
+    the chain to adapt after a change (the next evaluation of the incumbent
+    refreshes it).  We follow the paper: compare Y_n(z_n) against the stored
+    Y of the incumbent, refreshing the incumbent's Y whenever the incumbent
+    is re-evaluated (rejected proposals do not refresh it).
+    """
+
+    def __init__(
+        self,
+        space: ConfigSpace,
+        neighborhood: Neighborhood,
+        evaluate: Callable[[dict[str, Any], int], float],
+        schedule: Schedule | float = 1.0,
+        seed: int | np.random.Generator = 0,
+        init: tuple[int, ...] | None = None,
+        tabu: TabuMemory | None = None,
+    ):
+        self.space = space
+        self.nbhd = neighborhood
+        self.evaluate = evaluate
+        self.schedule = (
+            FixedTemperature(schedule) if isinstance(schedule, (int, float))
+            else schedule
+        )
+        self.rng = (
+            seed if isinstance(seed, np.random.Generator)
+            else np.random.default_rng(seed)
+        )
+        self.tabu = tabu
+        if init is None:
+            init = self._random_valid_state()
+        if not space.contains(init):
+            raise ValueError(f"initial state {init} not in the valid region")
+        self.state: tuple[int, ...] = tuple(init)
+        self.y: float | None = None   # incumbent objective (lazily measured)
+        self.n = 0
+        self.history: list[Step] = []
+        # every measurement taken, incumbent refreshes included — proposals
+        # alone under-report `best()` when the initial state is never beaten
+        self.evaluations: list[tuple[tuple[int, ...], float]] = []
+
+    # -- paper sec. 3: "Starting with a random configuration for x_0" --
+    def _random_valid_state(self, tries: int = 10_000) -> tuple[int, ...]:
+        return random_valid_state(self.space, self.rng, tries)
+
+    def reheat(self) -> None:
+        """Signal a workload/offering change: raise the temperature AND
+        invalidate the incumbent's stored objective — it was measured on
+        the pre-change workload, and without a refresh a now-false low Y
+        can pin the chain to the stale optimum forever (the comparison
+        would reject every honestly-measured proposal)."""
+        self.schedule.reheat(self.n)
+        self.y = None
+
+    # -- snapshot / replay (speculative pipelining support) --
+    def snapshot(self) -> ChainSnapshot:
+        """Checkpoint the walk at the current transition index.  History and
+        past measurements are not part of the snapshot — they record what
+        really ran and survive a :meth:`restore`."""
+        return ChainSnapshot(
+            n=self.n, state=tuple(self.state), y=self.y,
+            rng_state=copy.deepcopy(self.rng.bit_generator.state))
+
+    def restore(self, snap: ChainSnapshot) -> None:
+        """Rewind the walk (incumbent, stored objective, RNG) to ``snap``.
+        ``history`` and ``evaluations`` are left intact: measurements taken
+        past the snapshot were real evaluator runs and stay counted."""
+        self.state = tuple(snap.state)
+        self.y = snap.y
+        self.n = snap.n
+        self.rng.bit_generator.state = copy.deepcopy(snap.rng_state)
+
+    def draw_transition(
+        self,
+        propose_hook: Callable[[tuple[int, ...]], Any] | None = None,
+        state: Sequence[int] | None = None,
+    ) -> tuple[tuple[int, ...], float, Any]:
+        """Draw the next (proposal, acceptance uniform) pair in exactly the
+        RNG order of :meth:`step`.  ``propose_hook`` runs between the
+        proposal draw and the uniform draw — the slot where :meth:`step`'s
+        evaluation sits, so a caller whose evaluation consumes this RNG
+        (e.g. the procurement controller's blend-draw) keeps a pipelined
+        run's stream identical to the serial loop's.  ``state`` overrides
+        the incumbent the proposal is drawn around (the speculative
+        pipeline proposes from its lookahead frontier, not the committed
+        incumbent).  Returns ``(proposal, u, hook_result)``."""
+        x = tuple(self.state if state is None else state)
+        proposal = self.nbhd.propose(x, self.rng)
+        if self.tabu is not None:
+            proposal = self.tabu.filter(
+                x, proposal,
+                lambda: self.nbhd.propose(x, self.rng),
+            )
+        hooked = propose_hook(proposal) if propose_hook is not None else None
+        u = float(self.rng.random())
+        return proposal, u, hooked
+
+    def record_evaluation(self, state: Sequence[int], y: float) -> None:
+        """Count one real measurement.  The speculative pipeline records
+        every landed measurement through here exactly once — resolved
+        transitions AND mis-speculated (discarded) proposals, which were
+        still real evaluator runs and still inform :meth:`best`."""
+        self.evaluations.append((tuple(int(i) for i in state), float(y)))
+
+    def apply_transition(
+        self, proposal: tuple[int, ...], u: float, y_new: float,
+        *, n: int, tau: float,
+    ) -> Step:
+        """Commit one transition given a landed measurement ``y_new`` and
+        the acceptance uniform ``u`` drawn by :meth:`draw_transition`.
+        Shared by the inline :meth:`step` and the speculative pipeline, so
+        both resolve acceptance with identical semantics."""
+        dy = y_new - self.y
+        p = acceptance_probability(dy, tau)
+        accepted = bool(u < p)
+        explored = accepted and dy > 0
+
+        if accepted:
+            self.state, self.y = proposal, y_new
+        if self.tabu is not None:
+            self.tabu.visit(proposal, y_new)
+
+        rec = Step(
+            n=n, proposed=proposal, accepted=accepted, explored=explored,
+            y_proposed=y_new, y_current=self.y, tau=tau, state=self.state,
+        )
+        self.history.append(rec)
+        self.n += 1
+        return rec
+
+    def step(self, job: int | None = None) -> Step:
+        """Process one arriving job: propose, evaluate, accept/reject."""
+        n = self.n if job is None else job
+        tau = self.schedule(n)
+
+        if self.y is None:  # first job, or incumbent invalidated (reheat):
+            # this job runs under the incumbent to refresh its objective
+            self.y = float(self.evaluate(self.space.decode(self.state), n))
+            self.record_evaluation(self.state, self.y)
+
+        proposal, u, y_new = self.draw_transition(
+            lambda z: float(self.evaluate(self.space.decode(z), n)))
+        self.record_evaluation(proposal, y_new)
+        return self.apply_transition(proposal, u, y_new, n=n, tau=tau)
+
+    def run(self, n_jobs: int) -> list[Step]:
+        return [self.step() for _ in range(n_jobs)]
+
+    # -- diagnostics used by the paper's figures --
+    @property
+    def measure_count(self) -> int:
+        """Real objective evaluations taken so far (incumbent refreshes
+        included) — the denominator of any measurement-savings claim."""
+        return len(self.evaluations)
+
+    def best(self) -> tuple[tuple[int, ...], float]:
+        """Lowest measured objective over ALL evaluations — incumbent
+        initial/refresh measurements included, not just proposals."""
+        state, y = min(self.evaluations, key=lambda e: e[1])
+        return state, y
+
+    def exploration_rate(self) -> float:
+        if not self.history:
+            return 0.0
+        return sum(s.explored for s in self.history) / len(self.history)
+
+
+# ---------------------------------------------------------------------------
+# N-dimensional batched engine: the chain fleet over full ConfigSpaces.
+# ---------------------------------------------------------------------------
+
+
+def _as_encoded(space: ConfigSpace | EncodedSpace) -> EncodedSpace:
+    return space.encoded() if isinstance(space, ConfigSpace) else space
+
+
+def random_valid_states(
+    generator: torch.Generator | None,
+    space: ConfigSpace | EncodedSpace,
+    n: int,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """(n, ndim) int32 index vectors uniform over the VALID region."""
+    dev = resolve_device(device)
+    enc = _as_encoded(space)
+    if enc.valid_mask is None:
+        u = torch.rand((n, enc.ndim), generator=generator, device=dev,
+                       dtype=torch.float64)
+        sizes = torch.tensor(enc.shape, dtype=torch.float64, device=dev)
+        return (u * sizes).floor().to(torch.int32)
+    flat = np.flatnonzero(enc.valid_mask.reshape(-1))
+    if flat.size == 0:
+        raise ValueError("space has no valid states")
+    flat_d = torch.as_tensor(flat, dtype=torch.int64, device=dev)
+    picks = flat_d[torch.randint(0, flat.size, (n,), generator=generator,
+                                 device=dev)]
+    cols = []
+    for stride in row_major_strides(enc.shape):
+        cols.append(picks // stride)
+        picks = picks % stride
+    return torch.stack(cols, dim=-1).to(torch.int32)
+
+
+#: Keys of the ``draws=`` dict of :func:`anneal_fleet`, each (C, n_steps):
+#: the proposal axis, its direction (True is +1), the categorical pick in
+#: ``[0, max(n - 1, 1))`` for the drawn axis, and the acceptance uniform.
+#: ``"noise"`` (C, n_steps) and ``"noise0"`` (C,) are standard normals,
+#: read only when ``noise_std > 0``.
+DRAW_KEYS = ("axis", "up", "pick", "uniform")
+
+
+def _draw(generator, enc: EncodedSpace, C: int, S: int, noise: bool,
+          dev: torch.device) -> dict[str, torch.Tensor]:
+    """All of one call's random draws, made up front on ``dev``."""
+    axis = torch.randint(0, enc.ndim, (C, S), generator=generator,
+                         device=dev)
+    up = torch.rand((C, S), generator=generator, device=dev) < 0.5
+    sizes = torch.tensor(enc.shape, dtype=torch.int64, device=dev)
+    m = torch.clamp(sizes[axis] - 1, min=1)
+    u_cat = torch.rand((C, S), generator=generator, device=dev,
+                       dtype=torch.float64)
+    pick = torch.minimum((u_cat * m).floor().to(torch.int64), m - 1)
+    out = {"axis": axis, "up": up, "pick": pick,
+           "uniform": torch.rand((C, S), generator=generator, device=dev)}
+    if noise:
+        out["noise0"] = torch.randn((C,), generator=generator, device=dev)
+        out["noise"] = torch.randn((C, S), generator=generator, device=dev)
+    return out
+
+
+def anneal_fleet(
+    generator: torch.Generator | None,
+    space: ConfigSpace | EncodedSpace,
+    y_table: torch.Tensor | np.ndarray,
+    n_steps: int,
+    taus: torch.Tensor | np.ndarray | Sequence[float] | float,
+    inits: torch.Tensor | np.ndarray | None = None,
+    n_chains: int | None = None,
+    noise_std: float = 0.0,
+    per_chain_tables: bool = False,
+    extra_costs: torch.Tensor | np.ndarray | None = None,
+    draws: Mapping[str, Any] | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, torch.Tensor]:
+    """A fleet of N-dim chains walked together on ``device`` (paper Figs.
+    4/5/10 at scale: seeds x temperatures x tenants).
+
+    ``y_table`` has shape ``space.shape`` (static landscape) or
+    ``(n_steps,) + space.shape`` (time-indexed — workload drift; the
+    incumbent's stored objective goes stale exactly as in the online
+    :class:`Annealer`); with ``per_chain_tables`` it carries a leading (C,)
+    axis — one table per chain.  ``taus``: scalar (shared), (C,) per-chain
+    constants, or (C, n_steps) per-chain schedules (reheats baked in).
+    ``inits``: None (uniform over the valid region) or (ndim,) / (C, ndim).
+    Ordinal axes move +-1 (reflected); categorical axes resample
+    uniformly; invalid states are rejection-masked.
+
+    ``extra_costs``: optional per-chain additive cost rows, shape
+    ``(C,) + space.shape`` or ``(C, size)`` — every measurement of chain c
+    at state s sees ``y_table[...] + extra_costs[c, s]`` (the multi-tenant
+    coupling channel).
+
+    ``draws``: the random numbers to use instead of ``generator`` — a dict
+    with the :data:`DRAW_KEYS`, each (C, n_steps), plus ``"noise"`` /
+    ``"noise0"`` when ``noise_std > 0``.  The main path never passes it.
+
+    Returns ``{"states": (C, n_steps, ndim) int32, "ys": (C, n_steps)
+    float32, "accepts": (C, n_steps) bool, "inits": (C, ndim) int32}`` on
+    ``device``; ``ys`` include the extra-cost term when one is supplied.
+    No value is read back to the host.
+    """
+    dev = resolve_device(device)
+    enc = _as_encoded(space)
+    y = torch.as_tensor(y_table, dtype=torch.float32, device=dev)
+    base = y.ndim - (1 if per_chain_tables else 0)
+    if base == enc.ndim + 1:
+        dynamic = True
+    elif base == enc.ndim:
+        dynamic = False
+    else:
+        raise ValueError(f"table rank {y.ndim} vs space rank {enc.ndim}")
+
+    taus_arr = torch.as_tensor(taus, dtype=torch.float32, device=dev)
+    if n_chains is None:
+        if taus_arr.ndim >= 1:
+            n_chains = taus_arr.shape[0]
+        elif inits is not None and np.ndim(inits) == 2:
+            n_chains = len(inits)
+        elif per_chain_tables:
+            n_chains = y.shape[0]
+        else:
+            raise ValueError("pass n_chains (or batched taus/inits/tables)")
+    C, S = int(n_chains), int(n_steps)
+    if taus_arr.ndim == 1:
+        taus_arr = taus_arr[:, None]
+    taus_b = torch.broadcast_to(taus_arr, (C, S))
+
+    if inits is None:
+        inits = random_valid_states(generator, enc, C, device=dev)
+    else:
+        inits = torch.as_tensor(inits, dtype=torch.int32, device=dev)
+        if inits.ndim == 1:
+            inits = torch.broadcast_to(inits, (C, enc.ndim))
+
+    lead = (C,) if per_chain_tables else ()
+    time = (S,) if dynamic else ()
+    expect = lead + time + enc.shape
+    if tuple(y.shape) != expect:
+        raise ValueError(f"table shape {tuple(y.shape)} != expected {expect} "
+                         f"(chains={C}, steps={S}, space={enc.shape})")
+    y_flat = y.reshape(lead + time + (-1,))
+    valid_flat = (None if enc.valid_mask is None else torch.as_tensor(
+        enc.valid_mask.reshape(-1), device=dev))
+
+    extra = None
+    if extra_costs is not None:
+        extra = torch.as_tensor(extra_costs, dtype=torch.float32, device=dev)
+        if tuple(extra.shape) == (C,) + enc.shape:
+            extra = extra.reshape(C, -1)
+        if tuple(extra.shape) != (C, enc.size()):
+            raise ValueError(
+                f"extra_costs shape {tuple(extra.shape)} != "
+                f"{(C,) + enc.shape} (or its flattened form)")
+
+    noisy = noise_std > 0.0
+    if draws is None:
+        d = _draw(generator, enc, C, S, noisy, dev)
+    else:
+        keys = DRAW_KEYS + (("noise", "noise0") if noisy else ())
+        d = {k: torch.as_tensor(draws[k], device=dev) for k in keys}
+        for k in DRAW_KEYS + (("noise",) if noisy else ()):
+            if tuple(d[k].shape) != (C, S):
+                raise ValueError(f"draws[{k!r}] shape {tuple(d[k].shape)} "
+                                 f"!= {(C, S)}")
+        d["axis"] = d["axis"].to(torch.int64)
+        d["up"] = d["up"].to(torch.bool)
+        d["pick"] = d["pick"].to(torch.int64)
+        d["uniform"] = d["uniform"].to(torch.float32)
+        if noisy:
+            d["noise"] = d["noise"].to(torch.float32)
+            d["noise0"] = d["noise0"].to(torch.float32)
+
+    sizes = torch.tensor(enc.shape, dtype=torch.int64, device=dev)
+    categorical = torch.tensor(enc.categorical, dtype=torch.bool, device=dev)
+    rows = torch.arange(C, device=dev)
+
+    def lookup(t, zi):
+        y_now = y_flat[:, t] if (dynamic and per_chain_tables) else (
+            y_flat[t] if dynamic else y_flat)
+        v = y_now[rows, zi] if per_chain_tables else y_now[zi]
+        if extra is not None:
+            v = v + extra[rows, zi]
+        return v
+
+    x = inits.to(torch.int64)
+    y_x = lookup(0, flat_index(x, enc.shape))
+    if noisy:
+        y_x = y_x + noise_std * d["noise0"]
+    states = torch.empty((C, S, enc.ndim), dtype=torch.int32, device=dev)
+    ys = torch.empty((C, S), dtype=torch.float32, device=dev)
+    accepts = torch.empty((C, S), dtype=torch.bool, device=dev)
+    for t in range(S):
+        z = propose_nd(x, d["axis"][:, t], d["up"][:, t], d["pick"][:, t],
+                       sizes, categorical)
+        zi = flat_index(z, enc.shape)
+        y_z = lookup(t, zi)
+        if noisy:
+            y_z = y_z + noise_std * d["noise"][:, t]
+        dy = y_z - y_x
+        p = torch.exp(-torch.clamp(dy, min=0.0) / taus_b[:, t])
+        acc = d["uniform"][:, t] < p
+        if valid_flat is not None:
+            acc = acc & valid_flat[zi]
+        x = torch.where(acc[:, None], z, x)
+        y_x = torch.where(acc, y_z, y_x)
+        states[:, t] = x
+        ys[:, t] = y_z
+        accepts[:, t] = acc
+    return {"states": states, "ys": ys, "accepts": accepts,
+            "inits": inits}
+
+
+def chain_accept_stats(
+    ys: np.ndarray,                     # (C, n_steps) proposal objectives
+    accepts: np.ndarray,                # (C, n_steps) accept flags
+    y0: np.ndarray | float,             # (C,) objective at the inits
+    taus: np.ndarray,                   # (C, n_steps) temperatures
+) -> tuple[np.ndarray, np.ndarray]:
+    """Temperature and heat-bath probability at each chain's LAST
+    accepted transition, recovered post hoc from one compiled round's
+    outputs (numpy only — the provenance layer's read path, same
+    forward-fill trick as ``ControllerMixin.explored_flags``).
+
+    Returns ``(tau_at, p)`` of shape (C,): ``tau_at[c]`` is the
+    temperature at the last accepted step (the final step's temperature
+    when nothing was accepted) and ``p[c] = exp(-max(dy, 0)/tau)`` the
+    acceptance probability of that transition against the incumbent the
+    chain actually held before it (NaN when nothing was accepted).
+    """
+    ys = np.asarray(ys, np.float64)
+    accepts = np.asarray(accepts, bool)
+    C, n_steps = ys.shape
+    taus = np.broadcast_to(np.asarray(taus, np.float64), (C, n_steps))
+    kk = np.broadcast_to(np.arange(n_steps)[None, :], (C, n_steps))
+    last_acc = np.maximum.accumulate(np.where(accepts, kk, -1), axis=1)
+    prev_acc = np.concatenate(
+        [np.full((C, 1), -1), last_acc[:, :-1]], axis=1)
+    y0_col = np.broadcast_to(
+        np.asarray(y0, np.float64).reshape(-1, 1), (C, 1)).copy()
+    inc_before = np.where(
+        prev_acc >= 0,
+        np.take_along_axis(ys, np.maximum(prev_acc, 0), axis=1), y0_col)
+    k_last = last_acc[:, -1]
+    has = k_last >= 0
+    idx = np.maximum(k_last, 0)[:, None]
+    dy = (np.take_along_axis(ys, idx, axis=1)[:, 0]
+          - np.take_along_axis(inc_before, idx, axis=1)[:, 0])
+    tau_at = np.where(has,
+                      np.take_along_axis(taus, idx, axis=1)[:, 0],
+                      taus[:, -1])
+    pos_tau = np.maximum(tau_at, 1e-300)
+    p = np.exp(-np.maximum(dy, 0.0) / pos_tau)
+    p = np.where(tau_at <= 0.0, (dy <= 0.0).astype(np.float64), p)
+    return tau_at, np.where(has, p, np.nan)
+
+

@@ -1,0 +1,170 @@
+"""Public wrappers around the hand kernels.
+
+Each wrapper checks its inputs, then dispatches on where they lie: tensors
+on the CPU go through the plain PyTorch version in :mod:`.ref`; tensors on
+a CUDA device launch the hand kernel on PyTorch's current stream, or
+raise.  There is no fallback from the card to the plain version.
+
+Every launch adds one to :data:`LAUNCHES` under the kernel's name, so a
+run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ref
+
+#: Kernel launches since the last :func:`reset_launches`, by kernel name.
+LAUNCHES: dict[str, int] = {"sizing_latency": 0, "fused_interp": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "sizing_latency": ("sizing_latency_launch",
+                       [_P] * 7 + [_I, _I, _I, _F, _P]),
+    "fused_interp": ("fused_interp_launch",
+                     [_P] * 6 + [_I, _I, _I, _I, _F, _F, _F, _P]),
+}
+_fns: dict[str, object] = {}
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        sym, argtypes = _SIGNATURES[name]
+        fn = getattr(build.library(name), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _on_card(name: str, tensors: dict[str, torch.Tensor],
+             dtypes: dict[str, torch.dtype]) -> bool:
+    """True when the inputs lie on one CUDA device (launch the kernel),
+    False when all lie on the CPU (run the plain version); raises on a
+    mix, another device type, or what the kernel does not take."""
+    kinds = {t.device.type for t in tensors.values()}
+    if kinds == {"cpu"}:
+        return False
+    if kinds != {"cuda"} or len({t.device for t in tensors.values()}) != 1:
+        raise ValueError(f"{name}: inputs must all lie on the CPU or all on "
+                         f"one CUDA device, got "
+                         f"{[str(t.device) for t in tensors.values()]}")
+    for arg, t in tensors.items():
+        if t.dtype != dtypes[arg]:
+            raise TypeError(f"{name}: {arg} must be {dtypes[arg]} on the "
+                            f"card, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous on the card")
+    return True
+
+
+# A launch reads its inputs through raw pointers after the wrapper returns;
+# inputs the caller then drops stay valid, because PyTorch's caching
+# allocator hands their memory only to work queued later on the same stream.
+
+
+def _check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def sizing_latency(lam, mu, repl, visit_w, adj, *, c_max: int,
+                   sat_s: float = 1e4):
+    """lam/mu/repl/visit_w (B, K) float32, adj (K, K) bool -> (sojourn
+    (B, K), path (B, K)), both float32: the container-sizing M/M/c +
+    critical-path evaluator.
+
+    ``lam`` is the tier arrival rate, ``mu`` the per-replica service rate
+    (> 0), ``repl`` the integer replica count as float (1 <= repl <=
+    ``c_max``; a larger count selects no Erlang-B term and waits 0),
+    ``visit_w`` the per-row node weights, ``adj[v, u]`` True when tier v
+    calls tier u.  ``path[:, v]`` is the weighted critical path of the
+    sub-DAG rooted at v.  On the card K is at most 32.
+    """
+    B, K = lam.shape
+    for arg, x in (("mu", mu), ("repl", repl), ("visit_w", visit_w)):
+        if tuple(x.shape) != (B, K):
+            raise ValueError(f"{arg} shape {tuple(x.shape)} != {(B, K)}")
+    if tuple(adj.shape) != (K, K):
+        raise ValueError(f"adj shape {tuple(adj.shape)} != {(K, K)}")
+    if c_max < 1:
+        raise ValueError("c_max must be >= 1")
+    f32 = torch.float32
+    if not _on_card("sizing_latency",
+                    {"lam": lam, "mu": mu, "repl": repl, "visit_w": visit_w,
+                     "adj": adj},
+                    {"lam": f32, "mu": f32, "repl": f32, "visit_w": f32,
+                     "adj": torch.bool}):
+        return ref.sizing_latency_ref(lam, mu, repl, visit_w, adj,
+                                      c_max=c_max, sat_s=sat_s)
+    if K > 32:
+        raise ValueError(f"sizing_latency kernel takes K <= 32 tiers, got {K}")
+    soj = torch.empty((B, K), dtype=f32, device=lam.device)
+    path = torch.empty((B, K), dtype=f32, device=lam.device)
+    if B == 0:
+        return soj, path
+    with torch.cuda.device(lam.device):
+        _check("sizing_latency", _kernel("sizing_latency")(
+            lam.data_ptr(), mu.data_ptr(), repl.data_ptr(),
+            visit_w.data_ptr(), adj.data_ptr(), soj.data_ptr(),
+            path.data_ptr(), B, K, int(c_max), float(sat_s),
+            torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["sizing_latency"] += 1
+    return soj, path
+
+
+def fused_interp(xq, xm, y, w_rec, *, kind: str = "idw",
+                 length_scale: float = 0.25, idw_power: float = 2.0,
+                 eps: float = 1e-9):
+    """Fused surrogate refit: xq (Q, F), xm (M, F), y (M,), w_rec (M,)
+    float32 -> (mean (Q,), dmin (Q,)) float32 — the IDW/RBF estimate (the
+    recency-weighted global mean as the far-field fallback) and the
+    nearest-measurement distance, with no (Q, M) distance matrix in device
+    memory.  Rows with zero recency weight contribute nothing to the
+    estimate.  On the card F is at most 256.
+    """
+    Q, F = xq.shape
+    M, F2 = xm.shape
+    if F != F2:
+        raise ValueError(f"feature dims differ: {F} vs {F2}")
+    if tuple(y.shape) != (M,) or tuple(w_rec.shape) != (M,):
+        raise ValueError(f"y/w_rec shapes {tuple(y.shape)}/"
+                         f"{tuple(w_rec.shape)} != ({M},)")
+    if kind not in ("idw", "rbf"):
+        raise ValueError(f"unknown interp kind {kind!r}")
+    if M < 1:
+        raise ValueError("fused_interp needs at least one measurement")
+    f32 = torch.float32
+    if not _on_card("fused_interp",
+                    {"xq": xq, "xm": xm, "y": y, "w_rec": w_rec},
+                    {"xq": f32, "xm": f32, "y": f32, "w_rec": f32}):
+        return ref.fused_interp_ref(xq, xm, y, w_rec, kind=kind,
+                                    length_scale=length_scale,
+                                    idw_power=idw_power, eps=eps)
+    if F > 256:
+        raise ValueError(f"fused_interp kernel takes F <= 256, got {F}")
+    mean = torch.empty((Q,), dtype=f32, device=xq.device)
+    dmin = torch.empty((Q,), dtype=f32, device=xq.device)
+    if Q == 0:
+        return mean, dmin
+    with torch.cuda.device(xq.device):
+        _check("fused_interp", _kernel("fused_interp")(
+            xq.data_ptr(), xm.data_ptr(), y.data_ptr(), w_rec.data_ptr(),
+            mean.data_ptr(), dmin.data_ptr(), Q, M, F, int(kind == "rbf"),
+            float(idw_power / 2.0), float(eps),
+            float(2.0 * length_scale * length_scale),
+            torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["fused_interp"] += 1
+    return mean, dmin

@@ -1,0 +1,93 @@
+"""Plain PyTorch versions of the hand kernels (the allclose ground truth).
+
+Each function repeats its kernel's arithmetic in float32 with ordinary
+tensor ops.  :mod:`repro_torch.kernels.ops` runs these for tensors on the
+CPU; on the card it launches the kernels, and the tests and
+``chip_smoke.py`` hold each kernel against the function here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: Masked-out adjacency entries take this value inside the max-relaxation;
+#: any real path latency dominates it, and rows with no children fall back
+#: to 0 through the outer maximum.
+NEG = -1e30
+
+
+def pairwise_sqdist_ref(xq: torch.Tensor, xm: torch.Tensor) -> torch.Tensor:
+    """xq (Q, F), xm (M, F) -> (Q, M) squared Euclidean distances by the
+    expansion ``||q||^2 + ||m||^2 - 2 q.m``, clamped at 0."""
+    xq = xq.to(torch.float32)
+    xm = xm.to(torch.float32)
+    qq = (xq * xq).sum(dim=1, keepdim=True)
+    mm = (xm * xm).sum(dim=1, keepdim=True)
+    return torch.clamp(qq + mm.T - 2.0 * (xq @ xm.T), min=0.0)
+
+
+def fused_interp_ref(xq, xm, y, w_rec, *, kind: str = "idw",
+                     length_scale: float = 0.25, idw_power: float = 2.0,
+                     eps: float = 1e-9):
+    """Surrogate refit: distance + recency-weighted IDW/RBF reduction.
+
+    xq (Q, F), xm (M, F), y (M,), w_rec (M,) -> (mean (Q,), dmin (Q,)),
+    float32.  ``mean`` is the kernel-weighted estimate with the
+    recency-weighted global mean as the far-field fallback (taken when the
+    weight sum is <= 1e-12); ``dmin`` the distance to the nearest
+    measurement.
+    """
+    d2 = pairwise_sqdist_ref(xq, xm)                        # (Q, M)
+    if kind == "rbf":
+        k = torch.exp(-d2 / (2.0 * length_scale ** 2))
+    else:                                                   # "idw" (Shepard)
+        half = idw_power / 2.0
+        k = 1.0 / ((d2 if half == 1.0 else d2 ** half) + eps)
+    y32 = y.to(torch.float32)
+    w32 = w_rec.to(torch.float32)
+    k = k * w32[None, :]
+    wsum = k.sum(dim=1)
+    fallback = (y32 * w32).sum() / torch.clamp(w32.sum(), min=1e-12)
+    mean = torch.where(wsum > 1e-12,
+                       (k @ y32) / torch.clamp(wsum, min=1e-12), fallback)
+    dmin = torch.sqrt(d2.min(dim=1).values)
+    return mean, dmin
+
+
+def sizing_latency_ref(lam, mu, repl, visit_w, adj, *, c_max: int,
+                       sat_s: float = 1e4):
+    """M/M/c sojourns + DAG critical path.
+
+    lam/mu/repl/visit_w (B, K) -> (sojourn (B, K), path (B, K)), float32.
+    Erlang C through the in-[0, 1] Erlang-B recurrence run to ``c_max``,
+    picking ``B_c`` where ``repl == k`` exactly; unstable cells
+    (``repl * mu - lam <= 1e-9``) saturate to ``sat_s``; ``path[:, v]`` is
+    the heaviest visit-weighted path of the sub-DAG rooted at v, from K
+    Jacobi steps of ``L[v] = w[v] T[v] + max(0, max_{adj[v, u]} L[u])``.
+    """
+    lam = lam.to(torch.float32)
+    mu = mu.to(torch.float32)
+    c = repl.to(torch.float32)
+    w = visit_w.to(torch.float32)
+    a = lam / mu
+    b = torch.ones_like(a)
+    b_c = torch.zeros_like(a)
+    for k in range(1, int(c_max) + 1):
+        ab = a * b
+        b = ab / (k + ab)
+        b_c = torch.where(c == k, b, b_c)
+    rho = a / torch.clamp(c, min=1.0)
+    p_wait = b_c / torch.clamp(1.0 - rho * (1.0 - b_c), min=1e-12)
+    slack = c * mu - lam
+    soj = torch.where(slack > 1e-9,
+                      p_wait / torch.clamp(slack, min=1e-12) + 1.0 / mu,
+                      torch.full_like(a, float(sat_s)))
+    node = w * soj
+    edges = adj.to(torch.bool)
+    latency = node
+    for _ in range(lam.shape[1]):
+        masked = torch.where(edges[None, :, :], latency[:, None, :],
+                             torch.full((), NEG, dtype=torch.float32,
+                                        device=lam.device))
+        latency = node + torch.clamp(masked.max(dim=2).values, min=0.0)
+    return soj, latency
