@@ -13,22 +13,39 @@ What it does, in order; any failure exits non-zero:
    fresh ``build/chip_smoke`` (one ``nvcc`` per source, started together)
    and prints the build times and the ptxas register/spill lines;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the control loop gives it (real inputs of paths A and B, plus
-   random ones), with the JAX tests' tolerances;
+   shapes its path gives it (real inputs of paths A and B; the serve
+   path's prefill and decode shapes for the attention kernels), plus
+   random ones (every mask kind, softcap, ragged lengths, float32), with
+   the JAX tests' tolerances;
 4. path A: the container-sizing controller on the 8-tier e-commerce DAG's
    coarse menu (65,536 states), 12 rounds with a day -> evening drift of
    the request mix; whole-grid tables go through ``sizing_latency``;
 5. path B: the rich menu (1,679,616 states, past the 200k tabulation cap)
    through ``SurrogateSource(n_probe=1024)``, 3 rounds; every table build
    interpolates the grid through ``fused_interp`` (206 launches);
-6. times each kernel and its plain version with CUDA events at the path
-   shapes, beside the least time the card could take (its bound);
-7. prints one JSON line of kernel records, then the card line, then the
+6. path C: the annealed serve loop (``repro_torch.serving.anneal``) on
+   qwen3-8b at its full width and depth (36 layers, random bf16 weights
+   from a seed): 6 rounds of 24 requests of 512 tokens, 16 new tokens
+   each, batch menu (1, 2, 4, 8, 16); checks every request's tokens and
+   that ``flash_attention`` ran 36 times per prefill and ``flash_decode``
+   36 times per decode step;
+7. a 2-layer model at qwen3-8b's full width, through the kernels on the
+   card and with the same weights through the plain path on the host
+   (prompt 128, batch 2, 4 teacher-forced decode steps): with the weights
+   in float32 the logits agree at the bf16 tolerance, and in bf16 the
+   card's gap to the host is within the host's own bf16-vs-float32 gap;
+8. times each kernel and its plain version with CUDA events at the path
+   shapes (the attention kernels also at PREFILL_32K and DECODE_32K with
+   the batch cut), beside the least time the card could take (its bound)
+   and, for attention, PyTorch's ``scaled_dot_product_attention`` on the
+   same inputs (timed only; the port never calls it);
+9. prints one JSON line of kernel records, then the card line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
-With ``--profile`` it also traces a few more rounds of each path with
-``torch.profiler`` (after step 5) and prints the device's busy time and
-idle share per round.
+With ``--profile`` it also traces a few more rounds of paths A and B with
+``torch.profiler`` (after step 5), and one burst of path C's workload at
+batch 16 (after step 6), and prints the device's busy time and idle share
+of each.
 
 It exits with code 2 and prints no result when there is no CUDA device,
 or when it stands in a directory without the rest of the repository.
@@ -49,12 +66,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the
-# tensor cores.
+# tensor cores, bf16 on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 SIZING_TOL = dict(rtol=1e-5, atol=1e-7)      # tests/test_sizing.py:123-126
 INTERP_TOL = dict(atol=2e-5, rtol=1e-4)      # tests/test_kernels.py:326-328
+# tests/test_kernels.py:17-18; the attention kernels round scores and
+# weights where their plain versions (the model's math) do, but sum in
+# another order and take exp on the card
+BF16_TOL = dict(atol=0.03, rtol=0.05)
+F32_TOL = dict(atol=2e-5, rtol=1e-4)
+
+# path C's workload: the defaults of ``python -m repro_torch.serving.anneal``
+SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS, SERVE_ROUNDS = 512, 16, 24, 6
 
 LAMBDA_COST = 0.5
 SLO_PENALTY = 100.0
@@ -203,6 +229,343 @@ def compare(torch, name, outputs, got, want, tol) -> float:
     return err
 
 
+def time_cold_ms(torch, fn, iters: int, warm: int = 2,
+                 flush_bytes: int = 256 << 20) -> float:
+    """Mean device time of one ``fn()`` call found with a cold L2 cache, as
+    a call between other layers' work finds it: a 256 MB buffer is written
+    before each call, and CUDA events around each call time it alone.  The
+    device is parked in a spin kernel while the calls are enqueued, so the
+    host's overhead between calls is not in the events' intervals."""
+    flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    stops = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    torch.cuda._sleep(int(min(2.0 * host_s * iters, 2.0) * 2.0e9) + 1_000_000)
+    for a, b in zip(starts, stops):
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in zip(starts, stops)) / iters
+
+
+def profile_serve(torch, config, batch: int) -> None:
+    """Trace one burst of path C's workload served at ``batch`` (a prefill
+    and its decode steps per batch) with torch.profiler; prints the
+    device's busy time and idle share of the burst."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.device import generator
+    from repro_torch.models.transformer import init_model
+    from repro_torch.runtime.serve import build_decode_step, build_prefill_step
+    from repro_torch.serving import Request, ServeEngine
+
+    with torch.no_grad():
+        params = init_model(generator(0, device="cuda"), config)
+    shape = ShapeConfig("serve", SERVE_PROMPT + SERVE_NEW + 1, batch,
+                        "decode")
+    eng = ServeEngine(params, build_prefill_step(config, shape),
+                      build_decode_step(config, shape), max_batch=batch,
+                      prompt_len=SERVE_PROMPT)
+    rng = np.random.default_rng(0)
+
+    class Burst:
+        def round(self):
+            for i in range(SERVE_REQUESTS):
+                eng.submit(Request(rid=i, prompt=rng.integers(
+                    0, config.vocab, SERVE_PROMPT, dtype=np.int32),
+                    max_new=SERVE_NEW))
+            eng.drain()
+            eng.results.clear()
+
+    burst = Burst()
+    burst.round()                          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    burst.round()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    profile_rounds(torch, burst, 1, f"path C burst at batch {batch}",
+                   untraced_ms)
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def check_attention_kernels(torch, ops, ref, dev) -> dict[str, float]:
+    """Each attention kernel against its plain version on the card: at the
+    serve path's shapes, then random shapes covering every mask kind,
+    softcap, ragged lengths and float32.  Returns the max abs errors."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)) \
+            .to(dtype)
+
+    def tol(dtype):
+        return BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+
+    errs = {"flash_attention": [], "flash_decode": []}
+    cases = [  # (label, B, Sq, Sk, H, K, hd, kind, window, softcap, dtype)
+        ("serve prefill", 16, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 128,
+         "causal", 0, 0.0, torch.bfloat16),
+        ("ragged window", 2, 333, 333, 8, 2, 128, "window", 100, 0.0,
+         torch.bfloat16),
+        ("ragged chunk", 2, 333, 333, 8, 2, 128, "chunk", 128, 0.0,
+         torch.bfloat16),
+        ("bidir", 2, 256, 256, 8, 8, 64, "bidir", 0, 0.0, torch.bfloat16),
+        ("cross", 2, 77, 300, 8, 2, 128, "cross", 0, 0.0, torch.bfloat16),
+        ("softcap", 2, 256, 256, 8, 2, 128, "causal", 0, 30.0,
+         torch.bfloat16),
+        ("float32", 1, 200, 200, 4, 1, 64, "causal", 0, 0.0, torch.float32),
+    ]
+    for label, B, Sq, Sk, H, K, hd, kind, window, softcap, dt in cases:
+        q, k, v = rnd((B, Sq, H, hd), dt), rnd((B, Sk, K, hd), dt), \
+            rnd((B, Sk, K, hd), dt)
+        kw = dict(kind=kind, window=window, softcap=softcap)
+        errs["flash_attention"].append(compare(
+            torch, f"flash_attention {label} (B {B}, Sq {Sq}, Sk {Sk}, "
+                   f"H {H}/K {K}, hd {hd}, {kind}, {str(dt)[6:]})", ("out",),
+            (ops.flash_attention(q, k, v, **kw).float(),),
+            (ref.flash_attention_ref(q, k, v, **kw).float(),), tol(dt)))
+    W = SERVE_PROMPT + SERVE_NEW + 1
+    cases = [  # (label, B, W, K, G, hd, valid slots, softcap, dtype)
+        ("serve step", 16, W, 8, 4, 128, W - 3, 0.0, torch.bfloat16),
+        ("random mask, softcap", 3, 1000, 2, 8, 128, None, 30.0,
+         torch.bfloat16),
+        ("float32", 2, 300, 4, 4, 64, None, 0.0, torch.float32),
+    ]
+    for label, B, W_, K, G, hd, n_valid, softcap, dt in cases:
+        q = rnd((B, 1, K * G, hd), dt)
+        kc, vc = rnd((B, W_, K, hd), dt), rnd((B, W_, K, hd), dt)
+        if n_valid is None:
+            valid = torch.rand((B, W_), generator=gen, device=dev) < 0.6
+            valid[:, 0] = True
+        else:
+            valid = (torch.arange(W_, device=dev) < n_valid)[None] \
+                .expand(B, W_).contiguous()
+        errs["flash_decode"].append(compare(
+            torch, f"flash_decode {label} (B {B}, W {W_}, K {K}, G {G}, "
+                   f"hd {hd}, {str(dt)[6:]})", ("out",),
+            (ops.flash_decode(q, kc, vc, valid, softcap=softcap).float(),),
+            (ref.flash_decode_ref(q, kc, vc, valid,
+                                  softcap=softcap).float(),), tol(dt)))
+    torch.cuda.synchronize()
+    return {name: max(e) for name, e in errs.items()}
+
+
+def path_c(torch, ops, config) -> tuple[dict, dict]:
+    """The annealed serve loop at full width and depth; checks every
+    round's tokens and the kernels' launches per prefill and decode step.
+    Returns (the loop's result, the launches of the whole run)."""
+    from repro_torch.serving.anneal import anneal_serving
+
+    L = config.n_layers
+
+    def show(rec):
+        print(f"  round {rec['round']} batch {rec['batch']:2d} mean sojourn "
+              f"{rec['mean_sojourn_s']:.4f} s ({rec['batches']} batches, "
+              f"{rec['decode_steps']} decode steps, {rec['wall_s']:.3f} s) "
+              f"launches {rec['launches']}", flush=True)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = anneal_serving(config, device="cuda", seed=0,
+                         prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
+                         requests=SERVE_REQUESTS, rounds=SERVE_ROUNDS,
+                         on_round=show)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    print(f"path C: {config.name} ({config.param_count() / 1e9:.2f} B "
+          f"parameters, {L} layers), init {out['init_s']:.2f} s, "
+          f"{SERVE_ROUNDS} rounds in {wall:.1f} s, best batch "
+          f"{out['best_batch']} (mean sojourn {out['best_sojourn_s']:.4f} "
+          f"s), launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    recs = out["rounds"]
+    check(all(r["tokens_ok"] for r in recs),
+          f"path C: every request got its {SERVE_NEW} tokens in every round")
+    check(all(r["launches"]["flash_attention"] == L * r["batches"]
+              for r in recs),
+          f"path C: flash_attention launched {L} times per prefill")
+    check(all(r["launches"]["flash_decode"] == L * r["decode_steps"]
+              for r in recs),
+          f"path C: flash_decode launched {L} times per decode step")
+    check(launches["sizing_latency"] == launches["fused_interp"] == 0,
+          "path C launched no sizing kernel")
+    return out, launches
+
+
+def whole_model_check(torch, config) -> float:
+    """A 2-layer model at ``config``'s full width: prefill (prompt 128,
+    batch 2) and 4 decode steps through the kernels on the card, then the
+    same weights through the plain path on the host, the decode steps
+    teacher-forced with the card's tokens.
+
+    In bf16, two correct implementations differ wherever a float32 sum
+    lands near a bf16 rounding boundary in one and not the other, and a
+    flipped attention score (scores here have a standard deviation near
+    11, so the softmax is sharp) moves a whole hidden state: the card's
+    logits differ from the host's by a few hundredths at this width (see
+    PERF.md).  So the weights are also cast to float32 and run on both
+    sides, where no rounding hides a fault: the two implementations must
+    agree at the float32 tolerance.  In bf16 the card's gap to the host
+    must be no larger than the host's own gap between its bf16 and float32
+    runs; that rule only bounds rounding noise, and the float32 run is the
+    check that tells a right kernel from a wrong one.  Returns the float32
+    run's max abs logit error.
+    """
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.device import generator
+    from repro_torch.models.transformer import init_model
+    from repro_torch.runtime.serve import build_decode_step, build_prefill_step
+
+    cfg = dataclasses.replace(config, n_layers=2)
+    B, S, steps = 2, 128, 4
+    shape = ShapeConfig("check", S + steps + 1, B, "decode")
+    with torch.no_grad():
+        model = init_model(generator(7, device="cuda"), cfg)
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab, (B, S),
+                                               dtype=np.int32)
+    feed = []
+
+    def run(dev):
+        t0 = time.perf_counter()
+        logits, cache = build_prefill_step(cfg, shape, dev)(
+            model, {"tokens": tokens})
+        out = [logits.float().cpu()]
+        decode = build_decode_step(cfg, shape, dev)
+        for i in range(steps):
+            if len(feed) == i:
+                feed.append(torch.argmax(logits, -1)[:, None].cpu())
+            logits, cache = decode(model, cache, feed[i], S + i)
+            out.append(logits.float().cpu())
+        print(f"  2-layer model, {next(model.parameters()).dtype} on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s")
+        return out
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    types = {n: p.dtype for n, p in model.named_parameters()}
+    runs = {("cuda", "bf16"): run("cuda")}
+    with torch.no_grad():
+        model = model.float()
+    runs["cuda", "f32"] = run("cuda")
+    with torch.no_grad():
+        model = model.to("cpu")
+    runs["cpu", "f32"] = run("cpu")
+    with torch.no_grad():                  # back to the weights' own types
+        for n, p in model.named_parameters():
+            p.data = p.data.to(types[n])
+    runs["cpu", "bf16"] = run("cpu")
+    err32 = gap(runs["cuda", "f32"], runs["cpu", "f32"])
+    for i, (g, w) in enumerate(zip(runs["cuda", "f32"], runs["cpu", "f32"])):
+        check(torch.allclose(g, w, **F32_TOL),
+              f"2-layer {cfg.d_model}-wide model in float32, "
+              f"{'prefill' if i == 0 else f'decode step {i}'}: card logits "
+              f"vs host plain path, max abs err "
+              f"{float((g - w).abs().max()):.3e} within {F32_TOL}")
+    err16 = gap(runs["cuda", "bf16"], runs["cpu", "bf16"])
+    rounding = gap(runs["cpu", "bf16"], runs["cpu", "f32"])
+    outside = sum(int((~torch.isclose(g, w, **BF16_TOL)).sum()) for g, w in
+                  zip(runs["cuda", "bf16"], runs["cpu", "bf16"]))
+    total = sum(g.numel() for g in runs["cuda", "bf16"])
+    check(err16 <= rounding,
+          f"2-layer model in bf16: card vs host max abs logit err "
+          f"{err16:.3e} ({outside} of {total:,} logits outside {BF16_TOL}) "
+          f"is within the host's own bf16-vs-float32 gap {rounding:.3e}")
+    return err32
+
+
+def time_attention(torch, ops, ref, dev) -> list[dict]:
+    """Kernel, plain version and PyTorch's SDPA (``library_ms``) on the
+    same inputs, with their bounds: the serve path's shapes, and
+    PREFILL_32K / DECODE_32K with the batch cut to 1 and 32."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    rows = []
+    H, K, hd = 32, 8, 128
+    for label, B, S, iters in (("serve prefill", 16, SERVE_PROMPT, 20),
+                               ("PREFILL_32K, batch 1", 1, 32768, 2)):
+        q, k, v = rnd((B, S, H, hd)), rnd((B, S, K, hd)), rnd((B, S, K, hd))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        nops = 4 * hd * (S * (S + 1) // 2) * B * H
+        rows.append(dict(
+            name="flash_attention", label=label,
+            shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}, causal, bf16",
+            ms=time_cold_ms(torch, lambda: ops.flash_attention(q, k, v),
+                            iters, warm=1),
+            plain_ms=time_cold_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v), max(2, iters // 4), warm=1),
+            library_ms=time_cold_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True), iters, warm=1),
+            **bound(nbytes, nops, BF16_OPS_PER_S)))
+        del q, k, v
+    W = SERVE_PROMPT + SERVE_NEW + 1
+    for label, B, W_, n_valid, iters in (
+            ("serve decode step", 16, W, SERVE_PROMPT + SERVE_NEW - 1, 50),
+            ("DECODE_32K, batch 32", 32, 32768, 32768, 5)):
+        q = rnd((B, 1, H, hd))
+        kc, vc = rnd((B, W_, K, hd)), rnd((B, W_, K, hd))
+        valid = (torch.arange(W_, device=dev) < n_valid)[None] \
+            .expand(B, W_).contiguous()
+        nbytes = 2 * (2 * B * n_valid * K * hd + 2 * q.numel()) + B * W_
+        nops = 4 * B * H * n_valid * hd
+        mask = valid[:, None, None, :]
+        rows.append(dict(
+            name="flash_decode", label=label,
+            shape=f"B {B}, W {W_} ({n_valid} valid), H {H}, K {K}, hd {hd}, "
+                  f"bf16",
+            ms=time_cold_ms(torch, lambda: ops.flash_decode(q, kc, vc, valid),
+                            iters),
+            plain_ms=time_cold_ms(torch, lambda: ref.flash_decode_ref(
+                q, kc, vc, valid), max(2, iters // 5), warm=1),
+            library_ms=time_cold_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True), iters),
+            **bound(nbytes, nops, BF16_OPS_PER_S)))
+        del q, kc, vc
+    torch.cuda.empty_cache()
+    for r in rows:
+        print(f"{r['name']} {r['label']} ({r['shape']}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {r['nbytes'] / 1e6:.1f} MB, "
+              f"{r['nops'] / 1e9:.2f} GFLOP)")
+    return rows
+
+
+def bound(nbytes: float, nops: float, peak_ops: float) -> dict:
+    """The least time for moving ``nbytes`` and doing ``nops`` on the
+    card, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / peak_ops
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                nbytes=nbytes, nops=nops)
+
+
 def main(argv: list[str]) -> int:
     profile = "--profile" in argv
     src = ROOT / "src"
@@ -327,6 +690,8 @@ def main(argv: list[str]) -> int:
             ops.fused_interp(*fi_rand, kind=kind),
             ref.fused_interp_ref(*fi_rand, kind=kind), INTERP_TOL))
     records["fused_interp"] = {"max_abs_err": max(errs)}
+    for name, err in check_attention_kernels(torch, ops, ref, dev).items():
+        records[name] = {"max_abs_err": err}
     torch.cuda.synchronize()
 
     # -- 4. path A: coarse menu, drifting mix, whole-grid tables ------------
@@ -411,7 +776,21 @@ def main(argv: list[str]) -> int:
         profile_rounds(torch, ctrl_b, 2, "path B (table cached)",
                        1e3 * sum(round_s_b[1:]) / (n_b - 1))
 
-    # -- 6. times at the path shapes ----------------------------------------
+    # -- 6. path C: the annealed serve loop, qwen3-8b at full size ----------
+    from repro_torch.configs import get_config
+
+    qwen = get_config("qwen3-8b")
+    serve, launches_c = path_c(torch, ops, qwen)
+    del serve
+    torch.cuda.empty_cache()
+    if profile:
+        profile_serve(torch, qwen, 16)
+
+    # -- 7. the whole model on the card against the plain path on the host --
+    records["model_check"] = {"max_abs_err": whole_model_check(torch, qwen)}
+    torch.cuda.empty_cache()
+
+    # -- 8. times at the path shapes ----------------------------------------
     nb = sum(t.numel() * t.element_size() for t in sl_args) \
         + 2 * B * K * 4
     edges = int(sl_args[4].sum())
@@ -439,17 +818,23 @@ def main(argv: list[str]) -> int:
         bound_ms=fi_bound,
         bound_by="bytes" if nb / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S
         else "operations")
-    for name, rec in records.items():
+    for name in ("sizing_latency", "fused_interp"):
+        rec = records[name]
         print(f"{name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
               f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
               f"library none")
+    attn_rows = time_attention(torch, ops, ref, dev)
+    for name in ("flash_attention", "flash_decode"):
+        row = next(r for r in attn_rows if r["name"] == name)  # serve shape
+        records[name].update({k: row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     print(f"path A mean round {sum(round_s_a[1:]) / (n_a - 1):.4f} s "
           f"(rounds 1-{n_a - 1}), path B round 0 (table build) "
           f"{round_s_b[0]:.3f} s, later rounds "
           f"{sum(round_s_b[1:]) / max(n_b - 1, 1):.4f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 7. the record lines --------------------------------------------------
+    # -- 9. the record lines --------------------------------------------------
     meta = {
         "sizing_latency": ("src/repro_torch/kernels/csrc/sizing_latency.cu",
                            "src/repro/kernels/sizing_latency.py:124",
@@ -457,6 +842,12 @@ def main(argv: list[str]) -> int:
         "fused_interp": ("src/repro_torch/kernels/csrc/fused_interp.cu",
                          "src/repro/kernels/surrogate_distance.py:162",
                          launches_b["fused_interp"]),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:132",
+                            launches_c["flash_attention"]),
+        "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                         "src/repro/kernels/decode_attention.py:81",
+                         launches_c["flash_decode"]),
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():
@@ -466,7 +857,8 @@ def main(argv: list[str]) -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None})
+            "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
-"""Carry a running controller's state across from the reference package.
+"""Carry state across from the reference package.
 
-The system has no weights: what a long-running controller has learned is
-its measurement store and its control state (incumbent, round index,
-reheat schedule, drift-detector statistics).  These functions take that
-state as plain numpy/Python values — read off a controller of either
-package — and rebuild it here, so a loop started under the JAX package
-continues in the port.  Nothing here imports the reference package: a
-foreign controller is only read through its attributes.
+What a long-running controller has learned is its measurement store and
+its control state (incumbent, round index, reheat schedule, drift-detector
+statistics).  These functions take that state as plain numpy/Python
+values — read off a controller of either package — and rebuild it here, so
+a loop started under the JAX package continues in the port.  The LM
+stack's weights come across the same way, as the reference's parameter
+tree of arrays (:func:`model_params_from_jax`).  Nothing here imports the
+reference package: foreign objects are only read through their attributes
+and arrays.
 """
 
 from __future__ import annotations
@@ -14,8 +16,13 @@ from __future__ import annotations
 from typing import Any, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from .core.surrogate import MeasurementStore
+from .device import resolve_device
+from .models.attention import Attention
+from .models.mlp import MLP
+from .models.transformer import Block, Model, Norm, stack_plan
 
 _SCHEDULE_FIELDS = ("tau_base", "tau_hot", "relax", "_reheat_at")
 _DETECTOR_FIELDS = ("delta", "threshold", "min_obs", "z_clip",
@@ -80,3 +87,64 @@ def load_sizing_state(controller: Any, state: Mapping[str, Any]) -> None:
     if det is not None and controller._detector is not None:
         for k in _DETECTOR_FIELDS:
             setattr(controller._detector, k, det[k])
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    """A numpy (or JAX) array as a tensor of the same type.  The ml_dtypes
+    bfloat16 that ``np.asarray`` gives for a JAX bf16 array is not a type
+    ``torch.from_numpy`` takes; its bits go across as uint16."""
+    a = np.array(a)                        # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def model_params_from_jax(tree: Mapping[str, Any], config: Any,
+                          device: str | torch.device = "cuda") -> Model:
+    """The port's :class:`repro_torch.models.transformer.Model` holding the
+    weights of a reference model: ``tree`` is the value tree of the
+    reference's ``split_boxes(init_model(key, config, tp=1))[0]`` (nested
+    dicts of numpy or JAX arrays), ``config`` the port's copy of the
+    model's config.  The weights go to ``device``, the card unless the
+    caller names another.  The scanned stack's leading reps dimension is
+    split into one block per layer.  Trees built with tp > 1 (padded
+    heads) are refused: one device has no use for the padding."""
+    dev = resolve_device(device)
+    plan = stack_plan(config)
+    stack = tree["stack"]
+
+    def norm(p):
+        return Norm(_tensor(p["scale"], dev),
+                    None if "bias" not in p else _tensor(p["bias"], dev))
+
+    def block(p, lk):
+        a, f = p["attn"], p["ffn"]
+        H, K = np.shape(a["wq"])[1], np.shape(a["wk"])[1]
+        if (H, K) != (config.n_heads, config.n_kv_heads):
+            raise ValueError(
+                f"attention has {H} query / {K} kv heads where "
+                f"{config.name} has {config.n_heads} / {config.n_kv_heads}: "
+                f"a tree built with tp > 1 has padded heads; build it with "
+                f"tp=1")
+        return Block(lk, norm(p["ln1"]), norm(p["ln2"]), Attention(
+            *(_tensor(a[w], dev) for w in ("wq", "wk", "wv", "wo")),
+            q_norm=_tensor(a["q_norm"], dev) if "q_norm" in a else None,
+            k_norm=_tensor(a["k_norm"], dev) if "k_norm" in a else None),
+            MLP(_tensor(f["w_in"], dev), _tensor(f["w_out"], dev),
+                _tensor(f["w_gate"], dev) if "w_gate" in f else None))
+
+    def unstack(t, r):
+        if isinstance(t, Mapping):
+            return {k: unstack(v, r) for k, v in t.items()}
+        return np.asarray(t)[r]
+
+    layers = []
+    for r in range(plan.reps):
+        for pi, lk in enumerate(plan.pattern):
+            layers.append(block(unstack(stack["scan"][pi], r), lk))
+    for lk, p in zip(plan.tail, stack["tail"]):
+        layers.append(block(p, lk))
+    return Model(config, _tensor(tree["embed"], dev),
+                 _tensor(tree["lm_head"], dev), norm(tree["final_norm"]),
+                 layers)

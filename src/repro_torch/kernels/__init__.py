@@ -5,6 +5,14 @@ on CPU tensors), ``ref`` the plain versions, ``build`` the nvcc + ctypes
 loader, ``csrc/`` the CUDA C++ sources.
 """
 
-from .ops import LAUNCHES, fused_interp, reset_launches, sizing_latency
+from .ops import (
+    LAUNCHES,
+    flash_attention,
+    flash_decode,
+    fused_interp,
+    reset_launches,
+    sizing_latency,
+)
 
-__all__ = ["LAUNCHES", "fused_interp", "reset_launches", "sizing_latency"]
+__all__ = ["LAUNCHES", "flash_attention", "flash_decode", "fused_interp",
+           "reset_launches", "sizing_latency"]

@@ -31,6 +31,8 @@ _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES: dict[str, tuple[str, ...]] = {
     "sizing_latency": ("-fmad=false",),
     "fused_interp": (),
+    "flash_attention": (),
+    "flash_decode": (),
 }
 
 _lock = threading.Lock()

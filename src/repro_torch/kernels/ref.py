@@ -10,6 +10,9 @@ from __future__ import annotations
 
 import torch
 
+#: The model's mask value for refused scores (models/attention.py).
+NEG_INF = -2.0e30
+
 #: Masked-out adjacency entries take this value inside the max-relaxation;
 #: any real path latency dominates it, and rows with no children fall back
 #: to 0 through the outer maximum.
@@ -91,3 +94,98 @@ def sizing_latency_ref(lam, mu, repl, visit_w, adj, *, c_max: int,
                                         device=lam.device))
         latency = node + torch.clamp(masked.max(dim=2).values, min=0.0)
     return soj, latency
+
+
+def attention_mask(kind: str, window: int, s_q: int, s_k: int,
+                   q_offset: int = 0, device=None) -> torch.Tensor:
+    """(s_q, s_k) bool, True where query ``q_offset + i`` may see key j:
+    causal ``j <= i``; window also ``j > i - window``; chunk also the same
+    ``window``-sized chunk; bidir and cross everything."""
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    kj = torch.arange(s_k, device=device)[None, :]
+    if kind in ("bidir", "cross"):
+        return torch.ones((s_q, s_k), dtype=torch.bool, device=device)
+    m = kj <= qi
+    if kind == "window" and window > 0:
+        m = m & (kj > qi - window)
+    elif kind == "chunk" and window > 0:
+        m = m & ((qi // window) == (kj // window))
+    return m
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` summed in float32 and rounded once to ``a``'s
+    type, as the model's jnp products are."""
+    return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+
+
+def _score_divisor(hd: int, device) -> torch.Tensor:
+    return torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                   device=device))
+
+
+def flash_attention_ref(q, k, v, *, kind: str = "causal", window: int = 0,
+                        softcap: float = 0.0, q_chunk: int = 1024):
+    """Masked GQA attention in the model layout: q (B, Sq, H, hd), k/v
+    (B, Sk, K, hd) with H % K == 0 -> (B, Sq, H, hd); query head h reads kv
+    head h // (H / K).
+
+    The arithmetic of the model's full-score path (``_attend_dense`` of
+    the reference package's models/attention.py, which its ``ref.py``
+    oracle also runs): scores are products in the input type, then float32, over
+    sqrt(hd), plus -2e30 where the mask refuses; the softcap (if any) is
+    applied after the mask, then a float32 softmax whose weights are cast
+    back to the input type for the product with v.  Products are summed
+    in float32 and rounded once to the input type.  For float32 inputs no
+    rounding happens.  Query rows go through in chunks of ``q_chunk``
+    (each row's result is independent of the chunking), so the score
+    buffer stays (B, H, q_chunk, Sk).
+    """
+    B, Sq, H, hd = q.shape
+    K, Sk = k.shape[2], k.shape[1]
+    G = H // K
+    qg = q.reshape(B, Sq, K, G, hd)
+    div = _score_divisor(hd, q.device)
+    outs = []
+    for i0 in range(0, Sq, q_chunk):
+        qc = qg[:, i0:i0 + q_chunk]
+        n = qc.shape[1]
+        scores = _product("bqkgd,bskd->bkgqs", qc, k).float() / div
+        bias = torch.where(
+            attention_mask(kind, window, n, Sk, i0, q.device),
+            torch.zeros((), device=q.device), torch.full(
+                (), NEG_INF, device=q.device)).float()
+        scores = scores + bias
+        if softcap > 0.0:
+            scores = softcap * torch.tanh(scores / softcap)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        outs.append(_product("bkgqs,bskd->bqkgd", w, v)
+                    .reshape(B, n, H, hd))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def flash_decode_ref(q, k_cache, v_cache, valid_mask, *,
+                     softcap: float = 0.0):
+    """One query token per sequence against a masked cache, in the model
+    layout: q (B, 1, H, hd), caches (B, W, K, hd), valid (B, W) bool ->
+    (B, 1, H, hd).
+
+    The arithmetic of the model's ``decode_attend`` (models/attention.py):
+    scores are products in the input type, then float32, over sqrt(hd),
+    softcapped, set to -2e30 at invalid slots, a float32 softmax, weights
+    cast back to the input type for the product with v.  For float32
+    inputs this is the reference package's ``flash_decode_ref``.
+    """
+    B, _, H, hd = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, hd)
+    scores = _product("bkgd,bskd->bkgs", qg, k_cache).float() \
+        / _score_divisor(hd, q.device)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = torch.where(valid_mask[:, None, None, :], scores,
+                         torch.full((), NEG_INF, device=q.device))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = _product("bkgs,bskd->bkgd", w, v_cache)
+    return out.reshape(B, 1, H, hd)

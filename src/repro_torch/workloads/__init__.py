@@ -8,7 +8,18 @@ from .microservice import (
     as_mix_schedule,
     mmc_sojourn,
 )
+from .simulator import (
+    Arrival,
+    JobStream,
+    MultiTenantStream,
+    PoissonArrivals,
+    QueueSimulator,
+    TenantWorkload,
+    blended_stream,
+)
 
-__all__ = ["DEFAULT_SIZES", "ContainerSize", "DriftingMix",
+__all__ = ["Arrival", "JobStream", "MultiTenantStream", "PoissonArrivals",
+           "QueueSimulator", "TenantWorkload", "blended_stream",
+           "DEFAULT_SIZES", "ContainerSize", "DriftingMix",
            "MicroserviceDAG", "RequestClass", "ServiceTier",
            "as_mix_schedule", "mmc_sojourn"]

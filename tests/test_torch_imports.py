@@ -32,7 +32,7 @@ for n in names:
     importlib.import_module(n)
 leaked = sorted(k for k, v in sys.modules.items() if v is not None and (
     k in ("jax", "repro") or k.startswith(("jax.", "jaxlib", "repro."))))
-print(len(names), leaked)
+print(len(names), leaked, ",".join(names))
 '''
 
 
@@ -42,8 +42,13 @@ def test_every_port_module_imports_without_jax_or_reference():
         text=True, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
         timeout=120)
     assert out.returncode == 0, out.stderr
-    n, leaked = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20                        # every module was imported
+    n, rest = out.stdout.strip().split(" ", 1)
+    leaked, names = rest.rsplit(" ", 1)
+    names = names.split(",")
+    assert int(n) >= 55                        # every module was imported
+    for mod in ("configs.qwen3_8b", "models.decode", "runtime.serve",
+                "serving.anneal", "workloads.simulator"):
+        assert f"repro_torch.{mod}" in names
     assert leaked == "[]"
 
 

@@ -136,3 +136,47 @@ def test_wrappers_refuse_devices_they_cannot_serve():
     before = dict(ops.LAUNCHES)
     ops.fused_interp(*map(torch.as_tensor, _interp_inputs(5, 3, 7)))
     assert ops.LAUNCHES == before          # the plain version is no launch
+
+
+def _tests_calling(path, name):
+    """Names of the test functions in ``path`` that call ``ops.<name>``,
+    with whether each is marked ``gpu``."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    found = []
+    for node in tree.body:
+        if not (isinstance(node, ast.FunctionDef)
+                and node.name.startswith("test_")):
+            continue
+        calls = any(isinstance(n, ast.Call)
+                    and isinstance(n.func, ast.Attribute)
+                    and n.func.attr == name
+                    and isinstance(n.func.value, ast.Name)
+                    and n.func.value.id == "ops" for n in ast.walk(node))
+        gpu = any("gpu" in ast.unparse(d) for d in node.decorator_list)
+        if calls:
+            found.append((node.name, gpu))
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(ops.LAUNCHES))
+def test_every_kernel_has_plain_version_cpu_test_and_card_test(name):
+    """Kernel pairing: each public kernel of ``repro_torch.kernels.ops``
+    (each name it counts launches under) has a plain version
+    ``ref.<name>_ref``, a CPU test calling its wrapper, and a card test
+    (marked ``gpu``) calling it."""
+    from pathlib import Path
+
+    import repro_torch.kernels as pkg
+
+    assert callable(getattr(ops, name)) and name in pkg.__all__
+    assert callable(getattr(pref, f"{name}_ref"))
+    tests = Path(__file__).resolve().parent
+    cpu = [t for p in sorted(tests.glob("test_torch_*.py"))
+           if p.name != "test_torch_gpu.py"
+           for t in _tests_calling(p, name)]
+    card = [t for t, gpu in _tests_calling(tests / "test_torch_gpu.py", name)
+            if gpu]
+    assert cpu, f"no CPU test calls ops.{name}"
+    assert card, f"no card test calls ops.{name}"

@@ -2,23 +2,28 @@
 like the reference's: same inputs (numpy, from a seed) through both, exact
 equality of every output."""
 
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 
+from repro import configs as ref_configs
+from repro.workloads import simulator as ref_sim
 from repro.core import change_detect as ref_cd
 from repro.core import landscape as ref_land
 from repro.core import objective as ref_obj
 from repro.core import state as ref_state
 from repro.core import surrogate as ref_sur
 from repro.workloads import microservice as ref_ms
+from repro_torch import configs as pt_configs
 from repro_torch.core import change_detect as pt_cd
 from repro_torch.core import landscape as pt_land
 from repro_torch.core import objective as pt_obj
 from repro_torch.core import state as pt_state
 from repro_torch.core import surrogate as pt_sur
 from repro_torch.workloads import microservice as pt_ms
+from repro_torch.workloads import simulator as pt_sim
 
 
 def _space(mod, valid: bool):
@@ -141,3 +146,101 @@ def test_class_latencies_are_identical():
               for t, ((c, m), r) in zip(db.tiers, picks)}
         assert np.array_equal(da.class_latencies(sa, mix),
                               db.class_latencies(sb, mix))
+
+
+# ---------------------------------------------------------------------------
+# configs/: plain dataclasses, pinned field by field.
+# ---------------------------------------------------------------------------
+
+
+def _fields(obj):
+    """A config's fields as plain values (LayerKinds as tuples)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if f.name == "pattern":
+            v = tuple(dataclasses.astuple(lk) for lk in v)
+        out[f.name] = v
+    return out
+
+
+def test_config_registry_is_identical():
+    assert pt_configs.ARCH_NAMES == ref_configs.ARCH_NAMES
+    assert [f.name for f in dataclasses.fields(pt_configs.ModelConfig)] \
+        == [f.name for f in dataclasses.fields(ref_configs.ModelConfig)]
+    assert [f.name for f in dataclasses.fields(pt_configs.LayerKind)] \
+        == [f.name for f in dataclasses.fields(ref_configs.LayerKind)]
+    assert {k: dataclasses.astuple(v) for k, v in pt_configs.SHAPES.items()} \
+        == {k: dataclasses.astuple(v)
+            for k, v in ref_configs.SHAPES.items()}
+    assert dataclasses.astuple(pt_configs.PREFILL_32K) \
+        == ("prefill_32k", 32768, 32, "prefill")
+    assert dataclasses.astuple(pt_configs.DECODE_32K) \
+        == ("decode_32k", 32768, 128, "decode")
+
+
+@pytest.mark.parametrize("name", list(ref_configs.ARCH_NAMES) + ["repro-100m"])
+def test_config_copy_is_identical(name):
+    a, b = ref_configs.get_config(name), pt_configs.get_config(name)
+    assert _fields(a) == _fields(b)
+    assert _fields(a.reduced()) == _fields(b.reduced())
+    assert _fields(ref_configs.get_config(name + "-reduced")) \
+        == _fields(pt_configs.get_config(name + "-reduced"))
+    assert a.param_count() == b.param_count()
+    assert a.active_param_count() == b.active_param_count()
+    assert [dataclasses.astuple(lk) for lk in a.layers] \
+        == [dataclasses.astuple(lk) for lk in b.layers]
+    assert [s.name for s in ref_configs.shapes_for(a)] \
+        == [s.name for s in pt_configs.shapes_for(b)]
+
+
+# ---------------------------------------------------------------------------
+# workloads/simulator.py: streams and queues, pinned bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def test_job_streams_are_identical():
+    blend = {"a": 0.5, "b": 0.3, "c": 0.2}
+    ja, jb = ref_sim.JobStream(blend, seed=3), pt_sim.JobStream(blend, seed=3)
+    assert [next(ja) for _ in range(200)] == [next(jb) for _ in range(200)]
+    assert ref_sim.blended_stream(blend, {"c": 1.0}, 40, 100, seed=1) \
+        == pt_sim.blended_stream(blend, {"c": 1.0}, 40, 100, seed=1)
+
+
+def test_poisson_arrivals_and_queue_are_identical():
+    service = {"a": 0.2, "b": 0.7}
+    pa = ref_sim.PoissonArrivals(ref_sim.JobStream({"a": 1, "b": 2}, 5),
+                                 rate_per_s=3.0, seed=5)
+    pb = pt_sim.PoissonArrivals(pt_sim.JobStream({"a": 1, "b": 2}, 5),
+                                rate_per_s=3.0, seed=5)
+    arr_a = [next(pa) for _ in range(300)]
+    arr_b = [next(pb) for _ in range(300)]
+    assert [(a.n, a.job, a.t) for a in arr_a] \
+        == [(b.n, b.job, b.t) for b in arr_b]
+    qa = ref_sim.QueueSimulator(service.__getitem__)
+    qb = pt_sim.QueueSimulator(service.__getitem__)
+    assert [(c.start_t, c.finish_t) for c in qa.run(arr_a)] \
+        == [(c.start_t, c.finish_t) for c in qb.run(arr_b)]
+    assert qa.mean_sojourn(arr_a) == qb.mean_sojourn(arr_b)
+
+
+def test_multi_tenant_streams_are_identical():
+    def tenants(mod):
+        return [mod.TenantWorkload("t0", {"a": 1.0, "b": 1.0}),
+                mod.TenantWorkload("t1", {"a": 1.0}, {"b": 1.0}, 4)]
+
+    ma = ref_sim.MultiTenantStream(tenants(ref_sim), seed=2)
+    mb = pt_sim.MultiTenantStream(tenants(pt_sim), seed=2)
+    out_a, out_b = [], []
+    for r in range(12):
+        if r == 6:
+            for m, mod in ((ma, ref_sim), (mb, pt_sim)):
+                m.add_tenant(mod.TenantWorkload("t2", {"b": 2.0, "c": 1.0}))
+                m.set_blend("t0", {"c": 1.0})
+        if r == 9:
+            ma.remove_tenant("t1")
+            mb.remove_tenant("t1")
+        out_a.append(next(ma))
+        out_b.append(next(mb))
+    assert out_a == out_b
+    assert ma.blend_of("t2") == mb.blend_of("t2")

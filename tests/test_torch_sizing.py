@@ -271,4 +271,6 @@ def test_cpu_main_path_launches_no_kernel():
     ops.reset_launches()
     psz.SizingController(_pspec(replica_counts=(1, 2)), MIX_BROWSE,
                          steps_per_round=8, n_chains=2, device="cpu").run(2)
-    assert ops.LAUNCHES == {"sizing_latency": 0, "fused_interp": 0}
+    assert ops.LAUNCHES == dict.fromkeys(
+        ("sizing_latency", "fused_interp", "flash_attention",
+         "flash_decode"), 0)
