@@ -14,9 +14,11 @@ What it does, in order; any failure exits non-zero:
    and prints the build times and the ptxas register/spill lines;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it (real inputs of paths A and B; the serve
-   path's prefill and decode shapes for the attention kernels), plus
-   random ones (every mask kind, softcap, ragged lengths, float32), with
-   the JAX tests' tolerances;
+   path's prefill and decode shapes for the attention kernels; path D's
+   and qwen3-8b's training head layout for the attention backward), plus
+   random ones (every mask kind, softcap, ragged lengths, float32; rows of
+   up to 32,768 for ``quantize_int8``, which must be bit-equal), with the
+   JAX tests' tolerances;
 4. path A: the container-sizing controller on the 8-tier e-commerce DAG's
    coarse menu (65,536 states), 12 rounds with a day -> evening drift of
    the request mix; whole-grid tables go through ``sizing_latency``;
@@ -29,23 +31,37 @@ What it does, in order; any failure exits non-zero:
    each, batch menu (1, 2, 4, 8, 16); checks every request's tokens and
    that ``flash_attention`` ran 36 times per prefill and ``flash_decode``
    36 times per decode step;
-7. a 2-layer model at qwen3-8b's full width, through the kernels on the
+7. path D: training repro-100m at its full size (12 layers, d 768, 163.6 M
+   parameters, random from seed 0) through ``repro_torch.launch.train``
+   (batch 8 x 256, int8 compression, 2 microbatches, block remat) for 100
+   steps with checkpoints, checking that the loss drops and that every
+   step launched ``quantize_int8`` once per parameter tensor (111),
+   ``flash_attention`` 48 times (12 layers x 2 microbatches, twice with
+   the remat) and its backward 24 times; the quantizer on the run's real
+   gradients; then ``repro_torch.launch.train_anneal`` (microbatches x
+   remat annealed on measured step times) for 12 rounds of 10 steps;
+8. a 2-layer model at qwen3-8b's full width, through the kernels on the
    card and with the same weights through the plain path on the host
    (prompt 128, batch 2, 4 teacher-forced decode steps): with the weights
-   in float32 the logits agree at the bf16 tolerance, and in bf16 the
+   in float32 the logits agree at the float32 tolerance, and in bf16 the
    card's gap to the host is within the host's own bf16-vs-float32 gap;
-8. times each kernel and its plain version with CUDA events at the path
+   a 2-layer model at repro-100m's full width through one train step on
+   both (loss, gradients and new parameters in float32; gradients in bf16
+   within the host's own gap); and one train step of a 2-layer qwen3-8b
+   at full width (1 x 4096 tokens) on the card alone;
+9. times each kernel and its plain version with CUDA events at the path
    shapes (the attention kernels also at PREFILL_32K and DECODE_32K with
-   the batch cut), beside the least time the card could take (its bound)
-   and, for attention, PyTorch's ``scaled_dot_product_attention`` on the
-   same inputs (timed only; the port never calls it);
-9. prints one JSON line of kernel records, then the card line, then the
+   the batch cut, the backward also at qwen3-8b's training head layout),
+   beside the least time the card could take (its bound) and, for
+   attention, PyTorch's ``scaled_dot_product_attention`` on the same
+   inputs, forward or backward (timed only; the port never calls it);
+10. prints one JSON line of kernel records, then the card line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
 With ``--profile`` it also traces a few more rounds of paths A and B with
-``torch.profiler`` (after step 5), and one burst of path C's workload at
-batch 16 (after step 6), and prints the device's busy time and idle share
-of each.
+``torch.profiler`` (after step 5), one burst of path C's workload at
+batch 16 (after step 6) and three path-D train steps (in step 7), and
+prints the device's busy time and idle share of each.
 
 It exits with code 2 and prints no result when there is no CUDA device,
 or when it stands in a directory without the rest of the repository.
@@ -81,6 +97,11 @@ F32_TOL = dict(atol=2e-5, rtol=1e-4)
 
 # path C's workload: the defaults of ``python -m repro_torch.serving.anneal``
 SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS, SERVE_ROUNDS = 512, 16, 24, 6
+# path D's: ``python -m repro_torch.launch.train`` at the reference's
+# defaults (batch 8, seq 256) with int8 compression, 2 microbatches and
+# block remat; then ``launch.train_anneal`` (batch 4), shortened
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 100, 8, 256, 2
+ANNEAL_ROUNDS, ANNEAL_EVERY = 12, 10
 
 LAMBDA_COST = 0.5
 SLO_PENALTY = 100.0
@@ -557,6 +578,409 @@ def time_attention(torch, ops, ref, dev) -> list[dict]:
     return rows
 
 
+def bf16_ulp(torch, x):
+    """One bf16 unit in the last place at each element of ``x``."""
+    return torch.exp2(torch.floor(torch.log2(
+        x.float().abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def within_bf16_gap(torch, got, want, want32) -> tuple[bool, float]:
+    """The bf16 rule for a result summed in float32 and rounded once: each
+    element of ``got`` lies within the plain bf16 result ``want``'s own
+    largest gap to the plain float32 result ``want32``, or within one bf16
+    unit in the last place of ``want`` (two right roundings of float32
+    sums taken in another order can land on neighbouring bf16 values, and
+    at large magnitudes that step exceeds the gap).  Returns (ok, gap)."""
+    gap = float((want.float() - want32.float()).abs().max())
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= torch.clamp(bf16_ulp(torch, want), min=gap))
+                .all()), gap
+
+
+def check_training_kernels(torch, ops, ref, dev) -> dict[str, float]:
+    """The training path's kernels against their plain versions on the
+    card: ``quantize_int8`` bit-equal on random shapes (rows of up to
+    32,768, up to 32,768 rows, float32 and bf16); the forward's row
+    statistics; the backward at path D's shape, at qwen3-8b's training
+    head layout, and on random shapes with every mask kind, float32 at
+    atol/rtol 1e-3 and bf16 no farther from the plain bf16 gradient than
+    that is from the plain float32 one, or than one bf16 step
+    (:func:`within_bf16_gap`).  Returns the max abs errors."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = {"quantize_int8": [], "flash_attention_bwd": []}
+    for M, N in ((32768, 768), (768, 32768), (3072, 768), (768, 3072),
+                 (1, 768), (7, 5000), (12, 33)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn((M, N), generator=gen, device=dev)).to(dt)
+            q, s = ops.quantize_int8(x)
+            qr, sr = ref.quantize_int8_ref(x)
+            n_diff = int((q != qr).sum()) + int((s != sr).sum())
+            errs["quantize_int8"].append(
+                float((q.int() - qr.int()).abs().max()))
+            check(n_diff == 0, f"quantize_int8 ({M}x{N}, {str(dt)[6:]}) "
+                               f"bit-equal to its plain version")
+    cases = [  # (label, B, S, H, K, hd, kind, window, softcap)
+        ("path D", 4, 256, 12, 12, 64, "causal", 0, 0.0),
+        ("qwen3-8b training heads", 1, 4096, 32, 8, 128, "causal", 0, 0.0),
+        ("ragged window", 2, 333, 8, 2, 128, "window", 100, 0.0),
+        ("ragged chunk", 2, 333, 8, 2, 128, "chunk", 128, 0.0),
+        ("bidir", 2, 200, 8, 8, 64, "bidir", 0, 0.0),
+        ("softcap", 1, 256, 8, 2, 128, "causal", 0, 30.0),
+        ("MQA", 2, 150, 4, 1, 96, "causal", 0, 0.0),
+    ]
+    for label, B, S, H, K, hd, kind, window, softcap in cases:
+        base = [torch.randn(sh, generator=gen, device=dev)
+                for sh in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd),
+                           (B, S, H, hd))]
+        kw = dict(kind=kind, window=window, softcap=softcap)
+        plain = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (t.to(dt) for t in base)
+            _, (m, l) = ops.flash_attention(q, k, v, return_stats=True, **kw)
+            mr, lr = ref.flash_attention_stats_ref(q, k, **kw)
+            tag = (f"(B {B}, S {S}, H {H}/K {K}, hd {hd}, {kind}, "
+                   f"{str(dt)[6:]})")
+            tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+            check(torch.allclose(m, mr, **tol)
+                  and torch.allclose(l, lr, rtol=1e-5, atol=0),
+                  f"flash_attention stats {label} {tag}: row max within "
+                  f"{tol}, sum of exponentials within rtol 1e-5 (max "
+                  f"errs {float((m - mr).abs().max()):.2e}, "
+                  f"{float(((l - lr) / lr).abs().max()):.2e})")
+            got = ops.flash_attention_bwd(q, k, v, dout, (m, l), **kw)
+            plain[dt] = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+            for name, g, p, p32 in zip(("dq", "dk", "dv"), got, plain[dt],
+                                       plain[torch.float32]):
+                err = float((g.float() - p.float()).abs().max())
+                errs["flash_attention_bwd"].append(err)
+                if dt == torch.float32:
+                    check(torch.allclose(g, p, atol=1e-3, rtol=1e-3),
+                          f"flash_attention_bwd {label} {tag} {name}: max "
+                          f"abs err {err:.3e} within atol/rtol 1e-3")
+                else:
+                    ok, gap = within_bf16_gap(torch, g, p, p32)
+                    check(ok, f"flash_attention_bwd {label} {tag} {name}: "
+                              f"max abs err {err:.3e}; every element within "
+                              f"the plain version's bf16-vs-float32 gap "
+                              f"{gap:.3e} or one bf16 step")
+        del base, plain
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {name: max(e) for name, e in errs.items()}
+
+
+def path_d(torch, ops, ref, profile: bool) -> tuple[dict, dict]:
+    """The training path on repro-100m at full size: ``launch.train``
+    (int8 compression, 2 microbatches, block remat, batch 8, seq 256) for
+    TRAIN_STEPS steps with checkpoints, then the annealed twin
+    ``launch.train_anneal``.  Checks that the loss drops, the kernels'
+    launches per step, and the quantizer on the run's real gradients.
+    Returns (timings, the launches of the train run)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import committed_steps
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import TrainRun, run_training
+    from repro_torch.launch.train_anneal import anneal_training
+    from repro_torch.runtime.train import TrainStepOptions
+
+    config = get_config("repro-100m")
+    L, k = config.n_layers, TRAIN_MICROBATCHES
+    ckpt = ROOT / "build" / "chip_smoke" / "ckpt"
+    run = TrainRun(arch=config.name, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, ckpt_dir=str(ckpt), save_every=50,
+                   device="cuda",
+                   options=TrainStepOptions(
+                       microbatches=k, remat="block", compression="int8"))
+    per_step = []
+    last = {}
+
+    def on_metrics(step, metrics, dt):
+        now = dict(ops.LAUNCHES)
+        per_step.append({n: now[n] - last.get(n, 0) for n in now})
+        last.update(now)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run_training(run, on_metrics=on_metrics, log_every=10 ** 9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    losses = np.asarray(out["losses"])
+    times = np.asarray(out["step_times"])
+    n_params = sum(1 for _ in out["state"].params.parameters())
+    print(f"path D: {config.name} ({config.param_count():,} parameters, "
+          f"{n_params} tensors, {L} layers), {TRAIN_STEPS} steps of batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} ({k} microbatches, block remat, "
+          f"int8) in {wall:.1f} s; step median {np.median(times) * 1e3:.2f}"
+          f" ms (first {times[0] * 1e3:.0f} ms); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first 10 mean {losses[:10].mean():.4f}, last "
+          f"10 {losses[-10:].mean():.4f}); launches {launches}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check(out["final_step"] == TRAIN_STEPS and out["restarts"] == 0,
+          f"path D trained {TRAIN_STEPS} steps with no restart")
+    check(losses[-1] < losses[0] and losses[-10:].mean()
+          < losses[:10].mean() - 0.05,
+          "path D: the loss dropped (last < first, and the last 10 steps' "
+          "mean 0.05 under the first 10's)")
+    want = {"quantize_int8": n_params, "flash_attention": L * k * 2,
+            "flash_attention_bwd": L * k, "flash_decode": 0,
+            "sizing_latency": 0, "fused_interp": 0}
+    check(n_params == 111 and all(s == want for s in per_step),
+          f"path D: every step launched {want}")
+    check(committed_steps(str(ckpt))[-1] == TRAIN_STEPS,
+          "path D checkpointed its last step")
+
+    # the quantizer on this run's real gradients (one microbatch)
+    built = run.build()[1]
+    batch = SyntheticLM(DataConfig(vocab=config.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH)).batch_at(0)
+    _, _, grads = built.grads(out["state"].params, {
+        n: torch.from_numpy(v.astype(np.int64)).cuda()
+        for n, v in batch.items()})
+    same = all(all(torch.equal(a, b) for a, b in zip(
+        ops.quantize_int8(g.float()), ref.quantize_int8_ref(g.float())))
+        for g in grads.values())
+    check(same, f"quantize_int8 bit-equal to its plain version on path D's "
+                f"{len(grads)} real gradient tensors")
+
+    # the annealed twin, shortened
+    def show(rec):
+        print(f"  round {rec['round']:2d} step {rec['step']:4d} loss "
+              f"{rec['loss']:.4f} cfg={rec['config']} Y={rec['y']:.4f} s "
+              f"(measured {rec['proposed']} at {rec['step_s'] * 1e3:.1f} "
+              f"ms/step){' explored' if rec['explored'] else ''}", flush=True)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ann = anneal_training(config.name, steps=ANNEAL_ROUNDS * ANNEAL_EVERY,
+                          batch=4, seq=TRAIN_SEQ, anneal_every=ANNEAL_EVERY,
+                          ckpt_dir=str(ROOT / "build" / "chip_smoke"
+                                       / "anneal_ckpt"),
+                          device="cuda", on_round=show)
+    torch.cuda.synchronize()
+    ann_wall = time.perf_counter() - t0
+    al = ann["losses"]
+    print(f"path D anneal: {ann['steps']} steps in {ann_wall:.1f} s; loss "
+          f"{al[0]:.4f} -> {al[-1]:.4f}; annealer's best step config: "
+          f"{ann['best']} (Y={ann['best_y']:.4f} s/step); launches "
+          f"{dict(ops.LAUNCHES)}")
+    check(al[-1] < al[0], "path D anneal: the loss dropped")
+    check(ops.LAUNCHES["flash_attention_bwd"] > 0
+          and ops.LAUNCHES["quantize_int8"] == 0,
+          "path D anneal ran the attention kernels (and no compression)")
+    timing = {"step_ms": float(np.median(times)) * 1e3, "train_s": wall,
+              "anneal_s": ann_wall}
+    if profile:
+        profile_train(torch, built, out["state"], batch, timing["step_ms"])
+    del out, built, grads
+    torch.cuda.empty_cache()
+    return timing, launches
+
+
+def profile_train(torch, built, state, batch, untraced_ms: float) -> None:
+    """Trace 3 more path-D steps with torch.profiler; prints the device's
+    busy time per step and its idle share against the untraced median."""
+    class Steps:
+        def round(self):
+            built.step(state, batch)
+            float(state.opt.count)
+
+    built.step(state, batch)
+    profile_rounds(torch, Steps(), 3, "path D step", untraced_ms)
+
+
+def train_step_check(torch, config) -> None:
+    """A 2-layer model at ``config``'s full width: one microbatch's loss
+    and gradients, and one whole train step (AdamW, no compression),
+    through the kernels on the card and with the same weights through the
+    plain path on the host.  With float32 weights the loss agrees to rtol
+    1e-5, the gradients to atol 1e-4 / rtol 1e-3 and the new parameters
+    to atol 1e-5 / rtol 1e-4; with the model's own bf16 weights the
+    gradients' largest card-host gap is within the host's own largest
+    bf16-vs-float32 gap (the rule of :func:`whole_model_check`; that rule
+    only bounds rounding noise, and the float32 run tells a right kernel
+    from a wrong one)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.device import generator
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.optimizer import adamw_init
+    from repro_torch.runtime.train import TrainState, TrainStepOptions, \
+        build_train_step
+
+    cfg = dataclasses.replace(config, n_layers=2)
+    B, S = 4, 128
+    shape = ShapeConfig("check", S, B, "train")
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=B)).batch_at(3)
+    def run(dev, dtype):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            m = init_model(generator(7, device="cuda"), cfg)
+            m = (m.float() if dtype == "f32" else m).to(dev)
+        built = build_train_step(cfg, shape, TrainStepOptions(remat="block"),
+                                 dev)
+        loss, _, grads = built.grads(m, {
+            n: torch.from_numpy(v.astype(np.int64)).to(dev)
+            for n, v in batch.items()})
+        params = {n: p.detach() for n, p in m.named_parameters()}
+        state = TrainState(m, adamw_init(params, built.options.adamw), None)
+        state, _ = built.step(state, batch)
+        out = (loss.float().cpu(), {n: g.float().cpu()
+                                    for n, g in grads.items()},
+               {n: p.detach().float().cpu()
+                for n, p in state.params.named_parameters()})
+        print(f"  2-layer train step, {dtype} on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s, loss {float(out[0]):.6f}")
+        return out
+
+    runs = {(dev, dt): run(dev, dt) for dev in ("cuda", "cpu")
+            for dt in ("f32", "bf16")}
+
+    def gap(a, b):
+        return {n: float((a[n] - b[n]).abs().max()) for n in a}
+
+    c32, h32 = runs["cuda", "f32"], runs["cpu", "f32"]
+    check(torch.allclose(c32[0], h32[0], rtol=1e-5, atol=0),
+          f"2-layer {cfg.d_model}-wide train step in float32: card loss "
+          f"{float(c32[0]):.7f} vs host {float(h32[0]):.7f} within rtol "
+          f"1e-5")
+    err32 = max(gap(c32[1], h32[1]).values())
+    check(all(torch.allclose(c32[1][n], h32[1][n], atol=1e-4, rtol=1e-3)
+              for n in c32[1]),
+          f"2-layer train step in float32: card gradients vs host plain "
+          f"path, max abs err {err32:.3e} within atol 1e-4 / rtol 1e-3")
+    perr = max(gap(c32[2], h32[2]).values())
+    check(all(torch.allclose(c32[2][n], h32[2][n], atol=1e-5, rtol=1e-4)
+              for n in c32[2]),
+          f"2-layer train step in float32: new parameters, max abs err "
+          f"{perr:.3e} within atol 1e-5 / rtol 1e-4")
+    c16, h16 = runs["cuda", "bf16"], runs["cpu", "bf16"]
+    card = gap(c16[1], h16[1])
+    host = gap(h16[1], h32[1])
+    for n in sorted(card, key=lambda n: -card[n] / max(host[n], 1e-30))[:3]:
+        print(f"    {n}: card-host {card[n]:.3e}, host bf16-vs-float32 "
+              f"{host[n]:.3e}, within one bf16 step elementwise "
+              f"{within_bf16_gap(torch, c16[1][n], h16[1][n], h32[1][n])[0]}")
+    n_within = sum(card[n] <= host[n] for n in card)
+    check(max(card.values()) <= max(host.values()),
+          f"2-layer train step in bf16: card vs host max abs gradient err "
+          f"{max(card.values()):.3e} within the host's own bf16-vs-float32 "
+          f"gap {max(host.values()):.3e} ({n_within} of {len(card)} tensors "
+          f"within their own); loss {float(c16[0]):.5f} vs "
+          f"{float(h16[0]):.5f}")
+
+
+def qwen_train_step(torch, ops, config) -> None:
+    """One train step of a 2-layer model at ``config``'s full width on the
+    card alone (the host cannot afford the comparison): the training path
+    at hd 128 with GQA and qk-norm, no compression.  Checks a finite loss,
+    finite new parameters and the attention kernels' launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.runtime.train import TrainStepOptions, build_train_step
+
+    cfg = dataclasses.replace(config, n_layers=2)
+    B, S = 1, 4096
+    built = build_train_step(cfg, ShapeConfig("check", S, B, "train"),
+                             TrainStepOptions(), "cuda")
+    state = built.init(0)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                   global_batch=B)).batch_at(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = built.step(state, batch)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n = sum(1 for _ in state.params.parameters())
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.params.parameters())
+    print(f"  2-layer {cfg.d_model}-wide {config.name} train step (B {B}, S "
+          f"{S}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}): "
+          f"loss {loss:.4f} in {step_s:.2f} s, launches {launches}, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB")
+    fwd = 2 * (1 if built.config.remat == "none" else 2)
+    check(np.isfinite(loss) and finite and launches["flash_attention"] == fwd
+          and launches["flash_attention_bwd"] == 2,
+          f"{config.name} 2-layer train step on the card ({built.config.remat}"
+          f" remat): finite loss and {n} parameter tensors, {fwd} forward and "
+          f"2 backward attention launches")
+    del built, state
+    torch.cuda.empty_cache()
+
+
+def time_training_kernels(torch, ops, ref, dev) -> list[dict]:
+    """``quantize_int8`` at repro-100m's largest gradient, and the
+    backward at path D's shape and at qwen3-8b's training head layout:
+    kernel, plain version, library (SDPA's backward through autograd for
+    the attention; none for the quantizer) and bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    x = torch.randn((32768, 768), generator=gen, device=dev)
+    M, N = x.shape
+    rows.append(dict(
+        name="quantize_int8", label="embed gradient",
+        shape=f"{M} x {N}, float32",
+        ms=time_ms(torch, lambda: ops.quantize_int8(x), 200),
+        plain_ms=time_ms(torch, lambda: ref.quantize_int8_ref(x), 20),
+        library_ms=None, **bound(4 * M * N + M * N + 4 * M, 0,
+                                 FP32_OPS_PER_S)))
+    del x
+    for label, B, S, H, K, hd, iters in (
+            ("path D microbatch", 4, TRAIN_SEQ, 12, 12, 64, 50),
+            ("qwen3-8b training heads", 1, 4096, 32, 8, 128, 3)):
+        q, dout = (torch.randn((B, S, H, hd), generator=gen,
+                               device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn((B, S, K, hd), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        _, stats = ops.flash_attention(q, k, v, return_stats=True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        dt = dout.transpose(1, 2)
+        pairs = S * (S + 1) // 2
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                      + dout.numel()) + 8 * B * H * S
+        rows.append(dict(
+            name="flash_attention_bwd", label=label,
+            shape=f"B {B}, S {S}, H {H}, K {K}, hd {hd}, causal, bf16",
+            ms=time_cold_ms(torch, lambda: ops.flash_attention_bwd(
+                q, k, v, dout, stats), iters, warm=1),
+            plain_ms=time_cold_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                q, k, v, dout), max(2, iters // 5), warm=1),
+            library_ms=time_cold_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dt, retain_graph=True), iters, warm=1),
+            **bound(nbytes, 5 * 2 * hd * pairs * B * H, BF16_OPS_PER_S)))
+        del q, k, v, dout, qt, kt, vt, out, dt, stats
+    torch.cuda.empty_cache()
+    for r in rows:
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        print(f"{r['name']} {r['label']} ({r['shape']}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['nbytes'] / 1e6:.1f} MB, {r['nops'] / 1e9:.2f} GFLOP)")
+    return rows
+
+
 def bound(nbytes: float, nops: float, peak_ops: float) -> dict:
     """The least time for moving ``nbytes`` and doing ``nops`` on the
     card, and which of the two bounds it."""
@@ -692,6 +1116,8 @@ def main(argv: list[str]) -> int:
     records["fused_interp"] = {"max_abs_err": max(errs)}
     for name, err in check_attention_kernels(torch, ops, ref, dev).items():
         records[name] = {"max_abs_err": err}
+    for name, err in check_training_kernels(torch, ops, ref, dev).items():
+        records[name] = {"max_abs_err": err}
     torch.cuda.synchronize()
 
     # -- 4. path A: coarse menu, drifting mix, whole-grid tables ------------
@@ -786,11 +1212,17 @@ def main(argv: list[str]) -> int:
     if profile:
         profile_serve(torch, qwen, 16)
 
-    # -- 7. the whole model on the card against the plain path on the host --
+    # -- 7. path D: training repro-100m at full size, then annealed -------
+    train_timing, launches_d = path_d(torch, ops, ref, profile)
+
+    # -- 8. the whole model on the card against the plain path on the host --
     records["model_check"] = {"max_abs_err": whole_model_check(torch, qwen)}
     torch.cuda.empty_cache()
+    train_step_check(torch, get_config("repro-100m"))
+    torch.cuda.empty_cache()
+    qwen_train_step(torch, ops, qwen)
 
-    # -- 8. times at the path shapes ----------------------------------------
+    # -- 9. times at the path shapes ----------------------------------------
     nb = sum(t.numel() * t.element_size() for t in sl_args) \
         + 2 * B * K * 4
     edges = int(sl_args[4].sum())
@@ -824,17 +1256,23 @@ def main(argv: list[str]) -> int:
               f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
               f"library none")
     attn_rows = time_attention(torch, ops, ref, dev)
-    for name in ("flash_attention", "flash_decode"):
-        row = next(r for r in attn_rows if r["name"] == name)  # serve shape
+    train_rows = time_training_kernels(torch, ops, ref, dev)
+    for name in ("flash_attention", "flash_decode", "quantize_int8",
+                 "flash_attention_bwd"):
+        # the path shape: serve prefill and step, embed gradient, path D
+        row = next(r for r in attn_rows + train_rows if r["name"] == name)
         records[name].update({k: row[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     print(f"path A mean round {sum(round_s_a[1:]) / (n_a - 1):.4f} s "
           f"(rounds 1-{n_a - 1}), path B round 0 (table build) "
           f"{round_s_b[0]:.3f} s, later rounds "
-          f"{sum(round_s_b[1:]) / max(n_b - 1, 1):.4f} s")
+          f"{sum(round_s_b[1:]) / max(n_b - 1, 1):.4f} s; path D step "
+          f"{train_timing['step_ms']:.2f} ms (median), train "
+          f"{train_timing['train_s']:.1f} s, anneal "
+          f"{train_timing['anneal_s']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    # -- 9. the record lines --------------------------------------------------
+    # -- 10. the record lines -------------------------------------------------
     meta = {
         "sizing_latency": ("src/repro_torch/kernels/csrc/sizing_latency.cu",
                            "src/repro/kernels/sizing_latency.py:124",
@@ -844,10 +1282,18 @@ def main(argv: list[str]) -> int:
                          launches_b["fused_interp"]),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:132",
-                            launches_c["flash_attention"]),
+                            launches_c["flash_attention"]
+                            + launches_d["flash_attention"]),
         "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                          "src/repro/kernels/decode_attention.py:81",
                          launches_c["flash_decode"]),
+        "quantize_int8": ("src/repro_torch/kernels/csrc/quantize_int8.cu",
+                          "src/repro/kernels/quantize.py:34",
+                          launches_d["quantize_int8"]),
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/ops.py:54 (_fat_bwd, jnp)",
+            launches_d["flash_attention_bwd"]),
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():

@@ -6,7 +6,8 @@ statistics).  These functions take that state as plain numpy/Python
 values — read off a controller of either package — and rebuild it here, so
 a loop started under the JAX package continues in the port.  The LM
 stack's weights come across the same way, as the reference's parameter
-tree of arrays (:func:`model_params_from_jax`).  Nothing here imports the
+tree of arrays (:func:`model_params_from_jax`), and a training run's
+whole state (:func:`train_state_from_jax`).  Nothing here imports the
 reference package: foreign objects are only read through their attributes
 and arrays.
 """
@@ -23,6 +24,8 @@ from .device import resolve_device
 from .models.attention import Attention
 from .models.mlp import MLP
 from .models.transformer import Block, Model, Norm, stack_plan
+from .optim.optimizer import OptState
+from .runtime.train import TrainState, TrainStepOptions
 
 _SCHEDULE_FIELDS = ("tau_base", "tau_hot", "relax", "_reheat_at")
 _DETECTOR_FIELDS = ("delta", "threshold", "min_obs", "z_clip",
@@ -148,3 +151,36 @@ def model_params_from_jax(tree: Mapping[str, Any], config: Any,
     return Model(config, _tensor(tree["embed"], dev),
                  _tensor(tree["lm_head"], dev), norm(tree["final_norm"]),
                  layers)
+
+
+def train_state_from_jax(state: Any, config: Any,
+                         options: TrainStepOptions | None = None,
+                         device: str | torch.device = "cuda") -> TrainState:
+    """The port's :class:`repro_torch.runtime.train.TrainState` holding a
+    reference ``TrainState``: its params (through
+    :func:`model_params_from_jax`), its AdamW moments ``opt.m``/``opt.v``
+    and step count, and its error-feedback residual, the stacked leaves
+    unstacked into one tensor per layer as the params are, each keyed by
+    the port's parameter name.  Types are kept.  ``options`` (the port's
+    copy of the step's options) is checked against the state: int8
+    compression needs the residual, "none" has none.  The tensors go to
+    ``device``, the card unless the caller names another."""
+    dev = resolve_device(device)
+    model = model_params_from_jax(state.params, config, dev)
+    model.requires_grad_(True)
+
+    def named(tree):
+        return {n: p.detach() for n, p in
+                model_params_from_jax(tree, config, dev).named_parameters()}
+
+    residual = None if state.residual is None else named(state.residual)
+    if options is not None and (residual is None) != (
+            options.compression != "int8"):
+        raise ValueError(f"compression {options.compression!r} and a state "
+                         f"{'without' if residual is None else 'with'} an "
+                         f"error-feedback residual do not match")
+    count = torch.tensor(int(np.asarray(state.opt.count)), dtype=torch.int32,
+                         device=dev)
+    return TrainState(model, OptState(m=named(state.opt.m),
+                                      v=named(state.opt.v), count=count),
+                      residual)

@@ -8,11 +8,15 @@ loader, ``csrc/`` the CUDA C++ sources.
 from .ops import (
     LAUNCHES,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_trainable,
     flash_decode,
     fused_interp,
+    quantize_int8,
     reset_launches,
     sizing_latency,
 )
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_decode", "fused_interp",
-           "reset_launches", "sizing_latency"]
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_bwd",
+           "flash_attention_trainable", "flash_decode", "fused_interp",
+           "quantize_int8", "reset_launches", "sizing_latency"]

@@ -33,6 +33,8 @@ SOURCES: dict[str, tuple[str, ...]] = {
     "fused_interp": (),
     "flash_attention": (),
     "flash_decode": (),
+    "flash_attention_bwd": (),
+    "quantize_int8": (),
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,11 @@
 // For float32 inputs the roundings do nothing.  Mask kinds, in absolute
 // positions i (query) and j (key), j < Sk always: causal j <= i; window
 // j <= i and j > i - window; chunk j <= i and i / window == j / window;
-// bidir and cross every j.
+// bidir and cross every j.  When asked (the training forward), it also
+// writes each row's max m_i of the scores it admits and its sum of
+// exponentials l_i = sum_j exp(s_ij - m_i), float32 (B, H, Sq), which the
+// backward (flash_attention_bwd.cu) reads to recompute the weights bit for
+// bit; pass 1 has both already, so this costs one store per row.
 //
 // Bound on this card: at the serve path's prefill (B 16, H 32, K 8, S 512,
 // hd 128, causal) the kernel must read q, k, v and write o, about 168 MB
@@ -99,6 +103,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        int Sq, int Sk, int hd, int G, int kind, int window,
                        float sqrt_hd, float softcap) {
@@ -224,6 +229,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (i < Sq) {
+    if (m_out != nullptr && part == 0) {
+      const long long row = (static_cast<long long>(b) * gridDim.y + h) * Sq
+                            + i;
+      m_out[row] = m_run;
+      l_out[row] = l_run;
+    }
     T* orow = o + b * so.b + i * so.s + h * so.h;
 #pragma unroll
     for (int a = 0; a < kAcc; ++a) {
@@ -235,8 +246,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o,
-           Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-           int Sq, int Sk, int hd, int G, int kind, int window,
+           float* m_out, float* l_out, Strides sq, Strides sk, Strides sv,
+           Strides so, int B, int H, int Sq, int Sk, int hd, int G, int kind,
+           int window,
            float softcap, cudaStream_t stream) {
   const size_t bytes = sizeof(float) *
       (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1));
@@ -251,8 +263,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, Sq, Sk,
-      hd, G, kind, window, sqrtf((float)hd), softcap);
+      static_cast<const T*>(v), static_cast<T*>(o), m_out, l_out, sq, sk,
+      sv, so, Sq, Sk, hd, G, kind, window, sqrtf((float)hd), softcap);
   return cudaGetLastError();
 }
 
@@ -261,10 +273,12 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 float32, 1 bfloat16.  Strides are (batch, seq, head) in
 // elements, for q/k/v/o in the (B, S, heads, hd) layout with a unit
 // head-dim stride.  kind: 0 causal, 1 window, 2 chunk, 3 bidir (or cross).
+// m_out, l_out: null, or (B, H, Sq) float32 for the row statistics.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o,
-    const long long* strides, int B, int H, int K, int Sq, int Sk, int hd,
-    int dtype, int kind, int window, float softcap, void* stream) {
+    const void* q, const void* k, const void* v, void* o, float* m_out,
+    float* l_out, const long long* strides, int B, int H, int K, int Sq,
+    int Sk, int hd, int dtype, int kind, int window, float softcap,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || K < 1 || H % K != 0 || Sq < 1 || Sk < 1 || hd < 1 ||
       hd > 128 || kind < 0 || kind > 3)
@@ -275,8 +289,8 @@ extern "C" int flash_attention_launch(
   const Strides so{strides[9], strides[10], strides[11]};
   const int G = H / K;
 #define REPRO_FA_CASE(TYPE, HDM)                                              \
-  return launch<TYPE, HDM>(q, k, v, o, sq, sk, sv, so, B, H, Sq, Sk, hd, G, \
-                           kind, window, softcap, s);
+  return launch<TYPE, HDM>(q, k, v, o, m_out, l_out, sq, sk, sv, so, B, H, \
+                           Sq, Sk, hd, G, kind, window, softcap, s);
   if (dtype == 0) {
     if (hd <= 64) REPRO_FA_CASE(float, 64)
     REPRO_FA_CASE(float, 128)

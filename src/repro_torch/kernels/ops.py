@@ -7,6 +7,9 @@ raise.  There is no fallback from the card to the plain version.
 
 Every launch adds one to :data:`LAUNCHES` under the kernel's name, so a
 run can show that its main path went through the kernels.
+:func:`flash_attention_trainable` is the differentiable attention of the
+training path: :func:`flash_attention` forward (with its row statistics)
+and :func:`flash_attention_bwd` backward.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from . import build, ref
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 LAUNCHES: dict[str, int] = {"sizing_latency": 0, "fused_interp": 0,
-                             "flash_attention": 0, "flash_decode": 0}
+                             "flash_attention": 0, "flash_decode": 0,
+                             "flash_attention_bwd": 0, "quantize_int8": 0}
 
 
 def reset_launches() -> None:
@@ -36,7 +40,11 @@ _SIGNATURES = {
     "fused_interp": ("fused_interp_launch",
                      [_P] * 6 + [_I, _I, _I, _I, _F, _F, _F, _P]),
     "flash_attention": ("flash_attention_launch",
-                        [_P] * 5 + [_I] * 9 + [_F, _P]),
+                        [_P] * 7 + [_I] * 9 + [_F, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [_P] * 11 + [_I] * 9 + [_F, _P]),
+    "quantize_int8": ("quantize_int8_launch",
+                      [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_P]),
     "flash_decode": ("flash_decode_launch",
                      [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
 }
@@ -191,11 +199,38 @@ ATTENTION_KINDS = {"causal": 0, "window": 1, "chunk": 2, "bidir": 3,
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _attention_shapes(q, k, v, kind: str) -> tuple[int, ...]:
+    """(B, Sq, H, hd, Sk, K) of model-layout q, k, v; raises on shapes the
+    attention kernels do not take."""
+    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}: want (B, Sq, H, hd) and two "
+                         f"(B, Sk, K, hd)")
+    B, Sq, H, hd = q.shape
+    _, Sk, K, hd2 = k.shape
+    if k.shape[0] != B or hd2 != hd or K < 1 or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do "
+                         f"not match (H must be a multiple of K)")
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(f"unknown attention kind {kind!r}")
+    return B, Sq, H, hd, Sk, K
+
+
+def _strides(*tensors) -> ctypes.Array:
+    """(batch, seq, head) strides of model-layout tensors, for a kernel."""
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(t.stride(i) for t in tensors for i in range(3)))
+
+
 def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
-                    softcap: float = 0.0):
+                    softcap: float = 0.0, return_stats: bool = False):
     """Masked GQA attention in the model layout: q (B, Sq, H, hd), k/v
     (B, Sk, K, hd), H % K == 0 -> (B, Sq, H, hd) in q's type (float32 or
     bfloat16; float32 math, rounded to q's type where the model rounds).
+    With ``return_stats`` it returns ``(o, (m, l))``: each row's max score
+    and sum of exponentials, (B, H, Sq) float32, which
+    :func:`flash_attention_bwd` reads (the plain version computes them
+    with :func:`ref.flash_attention_stats_ref`).
     Query head h reads kv head h // (H / K).  ``kind`` is causal, window,
     chunk (both with ``window``), bidir or cross; ``softcap`` > 0 caps
     scores with tanh.
@@ -211,43 +246,168 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     below the tolerance, as in causal rows, whose diagonal is never
     refused.
     """
-    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: want (B, Sq, H, hd) and two "
-                         f"(B, Sk, K, hd)")
-    B, Sq, H, hd = q.shape
-    _, Sk, K, hd2 = k.shape
-    if k.shape[0] != B or hd2 != hd or K < 1 or H % K:
-        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do "
-                         f"not match (H must be a multiple of K)")
-    if kind not in ATTENTION_KINDS:
-        raise ValueError(f"unknown attention kind {kind!r}")
+    B, Sq, H, hd, Sk, K = _attention_shapes(q, k, v, kind)
     if not _on_card("flash_attention", {"q": q, "k": k, "v": v},
                     {"q": _ATTN_DTYPES, "k": _ATTN_DTYPES,
                      "v": _ATTN_DTYPES}, strided=("q", "k", "v")):
-        return ref.flash_attention_ref(q, k, v, kind=kind, window=window,
-                                       softcap=softcap)
+        o = ref.flash_attention_ref(q, k, v, kind=kind, window=window,
+                                    softcap=softcap)
+        if not return_stats:
+            return o
+        return o, ref.flash_attention_stats_ref(q, k, kind=kind,
+                                                window=window,
+                                                softcap=softcap)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention: q, k, v types differ "
                         f"({q.dtype}, {k.dtype}, {v.dtype})")
     if hd > 128:
         raise ValueError(f"flash_attention kernel takes hd <= 128, got {hd}")
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    stats = tuple(torch.empty((B, H, Sq), dtype=torch.float32,
+                              device=q.device)
+                  for _ in range(2 if return_stats else 0))
     if B == 0 or Sq == 0:
-        return o
+        return (o, stats) if return_stats else o
     if Sk == 0:
         raise ValueError("flash_attention needs at least one key")
-    strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, o) for i in range(3)))
+    strides = _strides(q, k, v, o)
+    m_ptr, l_ptr = (t.data_ptr() for t in stats) if return_stats else (0, 0)
     with torch.cuda.device(q.device):
         _check("flash_attention", _kernel("flash_attention")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            ctypes.addressof(strides), B, H, K, Sq, Sk, hd,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m_ptr,
+            l_ptr, ctypes.addressof(strides), B, H, K, Sq, Sk, hd,
             int(q.dtype == torch.bfloat16), ATTENTION_KINDS[kind],
             int(window), float(softcap),
             torch.cuda.current_stream().cuda_stream))
     LAUNCHES["flash_attention"] += 1
-    return o
+    return (o, stats) if return_stats else o
+
+
+def flash_attention_bwd(q, k, v, dout, stats=None, *, kind: str = "causal",
+                        window: int = 0, softcap: float = 0.0):
+    """The gradient of :func:`flash_attention`: q (B, Sq, H, hd), k/v
+    (B, Sk, K, hd) and the output gradient ``dout`` (B, Sq, H, hd), all
+    of one type -> (dq, dk, dv) in that type, with the model's rounding
+    points (see ``csrc/flash_attention_bwd.cu``).  ``stats`` is the
+    ``(m, l)`` that :func:`flash_attention` returned with
+    ``return_stats``; the card needs it, the plain version
+    (:func:`ref.flash_attention_bwd_ref`, autograd through the forward)
+    ignores it.  The card reads q, k, v and dout through their strides
+    (unit stride in the head dim) and takes hd <= 128; dk and dv are
+    summed over the query heads of each kv head without atomics, so the
+    result does not change from run to run.  With a softcap the kernel,
+    as its forward, gives refused keys no weight (see
+    :func:`flash_attention`).
+    """
+    B, Sq, H, hd, Sk, K = _attention_shapes(q, k, v, kind)
+    if tuple(dout.shape) != (B, Sq, H, hd):
+        raise ValueError(f"dout {tuple(dout.shape)} != {(B, Sq, H, hd)}")
+    if not _on_card("flash_attention_bwd",
+                    {"q": q, "k": k, "v": v, "dout": dout},
+                    {"q": _ATTN_DTYPES, "k": _ATTN_DTYPES,
+                     "v": _ATTN_DTYPES, "dout": _ATTN_DTYPES},
+                    strided=("q", "k", "v", "dout")):
+        return ref.flash_attention_bwd_ref(q, k, v, dout, kind=kind,
+                                           window=window, softcap=softcap)
+    if not q.dtype == k.dtype == v.dtype == dout.dtype:
+        raise TypeError(f"flash_attention_bwd: q, k, v, dout types differ "
+                        f"({q.dtype}, {k.dtype}, {v.dtype}, {dout.dtype})")
+    if hd > 128:
+        raise ValueError(f"flash_attention_bwd kernel takes hd <= 128, "
+                         f"got {hd}")
+    if stats is None:
+        raise ValueError("flash_attention_bwd needs the forward's row "
+                         "statistics on the card (flash_attention(..., "
+                         "return_stats=True))")
+    m, l = stats
+    for name, t in (("m", m), ("l", l)):
+        if (tuple(t.shape) != (B, H, Sq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"flash_attention_bwd: stats {name} must be "
+                             f"({B}, {H}, {Sq}) contiguous float32 on "
+                             f"{q.device}")
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, K, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, K, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0 or Sk == 0:
+        return dq, dk.zero_(), dv.zero_()
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, dout, dq, dk, dv)
+    with torch.cuda.device(q.device):
+        _check("flash_attention_bwd", _kernel("flash_attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            m.data_ptr(), l.data_ptr(), D.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides), B, H,
+            K, Sq, Sk, hd, int(q.dtype == torch.bfloat16),
+            ATTENTION_KINDS[kind], int(window), float(softcap),
+            torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` forward, :func:`flash_attention_bwd`
+    backward.  Saves q, k, v and the row statistics (B, H, Sq) x 2 float32;
+    no score tensor, as the reference's ``_fat_bwd`` recomputes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kind, window, softcap):
+        # the plain backward recomputes the forward and needs no statistics
+        o, stats = flash_attention(q, k, v, kind=kind, window=window,
+                                   softcap=softcap, return_stats=True) \
+            if q.is_cuda else (flash_attention(
+                q, k, v, kind=kind, window=window, softcap=softcap), ())
+        ctx.save_for_backward(q, k, v, *stats)
+        ctx.opts = dict(kind=kind, window=window, softcap=softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, *stats = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, stats or None,
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_trainable(q, k, v, kind: str = "causal", window: int = 0,
+                              softcap: float = 0.0):
+    """Differentiable :func:`flash_attention` (the reference package's
+    ``kernels/ops.py`` ``flash_attention_trainable``): the forward kernel,
+    and the backward kernel for the gradient; on the CPU both run their
+    plain versions."""
+    return _FlashAttention.apply(q, k, v, kind, int(window), float(softcap))
+
+
+def quantize_int8(x):
+    """Row-wise int8 quantization (gradient compression): x (..., N)
+    float32 or bfloat16 -> (q int8 (..., N), scale float32 (..., 1)); rows
+    are the leading dims.  ``scale = max(absmax, 1e-12) / 127`` and
+    ``q = clip(round_half_even(x / scale), -127, 127)`` with IEEE
+    divisions, bit-equal to the plain version and to the reference.  The
+    card takes a contiguous x, any number of rows of any length.
+    """
+    if x.dim() < 1 or x.shape[-1] < 1:
+        raise ValueError(f"quantize_int8 needs rows of at least one "
+                         f"element, got shape {tuple(x.shape)}")
+    if not _on_card("quantize_int8", {"x": x},
+                    {"x": (torch.float32, torch.bfloat16)}):
+        return ref.quantize_int8_ref(x)
+    N = x.shape[-1]
+    M = x.numel() // N
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32,
+                        device=x.device)
+    if M == 0:
+        return q, scale
+    vec4 = (x.dtype == torch.float32 and N % 4 == 0
+            and x.data_ptr() % 16 == 0 and q.data_ptr() % 4 == 0)
+    with torch.cuda.device(x.device):
+        _check("quantize_int8", _kernel("quantize_int8")(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, N,
+            int(x.dtype == torch.bfloat16), int(vec4),
+            torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["quantize_int8"] += 1
+    return q, scale
 
 
 def flash_decode(q, k_cache, v_cache, valid_mask, *, softcap: float = 0.0):

@@ -164,6 +164,61 @@ def flash_attention_ref(q, k, v, *, kind: str = "causal", window: int = 0,
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
+def flash_attention_stats_ref(q, k, *, kind: str = "causal", window: int = 0,
+                              softcap: float = 0.0):
+    """The row statistics the flash-attention kernel writes for the
+    backward: q (B, Sq, H, hd), k (B, Sk, K, hd) -> (m, l), each
+    (B, H, Sq) float32, with m_i the largest admitted score of row i and
+    l_i = sum_j exp(s_ij - m_i) over the admitted keys.  Scores as in
+    :func:`flash_attention_ref` (products rounded to the input type, over
+    sqrt(hd)); with a softcap the tanh comes before the mask, as in the
+    kernel.  A row with no admitted key has m = -inf and l = 0 here (the
+    kernel writes a large negative m there)."""
+    B, Sq, H, hd = q.shape
+    K, Sk = k.shape[2], k.shape[1]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    scores = _product("bqkgd,bskd->bkgqs", qg, k).float() \
+        / _score_divisor(hd, q.device)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = scores.masked_fill(
+        ~attention_mask(kind, window, Sq, Sk, 0, q.device), float("-inf"))
+    m = scores.amax(dim=-1)
+    l = torch.exp(scores - m[..., None]).nan_to_num(0.0).sum(dim=-1)
+    return m.reshape(B, H, Sq), l.reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, kind: str = "causal",
+                            window: int = 0, softcap: float = 0.0):
+    """The gradient of :func:`flash_attention_ref`: (dq, dk, dv) for the
+    output gradient ``dout`` (B, Sq, H, hd), in the inputs' types, by
+    autograd through the forward (the reference's ``_fat_bwd``, the vjp of
+    the model's attention, at its rounding points: the float32 softmax
+    backward of the bf16 weights' gradient, the score gradient rounded to
+    the input type before its two products, each product summed in float32
+    and rounded once)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, kind=kind, window=window,
+                                  softcap=softcap)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def quantize_int8_ref(x: torch.Tensor):
+    """x (..., N) -> (q int8 (..., N), scale float32 (..., 1)): the row-wise
+    absmax scale ``max(amax, 1e-12) / 127`` and ``clip(round(x / scale),
+    -127, 127)``, rounding half to even (the reference's jnp
+    ``optim/compression.py`` ``quantize_int8``).  Both divisions are
+    tensor by tensor, so they are IEEE divisions on the card too (PyTorch
+    multiplies by the reciprocal of a Python scalar divisor there)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / torch.full(
+        (), 127.0, dtype=torch.float32, device=x.device)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def flash_decode_ref(q, k_cache, v_cache, valid_mask, *,
                      softcap: float = 0.0):
     """One query token per sequence against a masked cache, in the model

@@ -9,6 +9,9 @@ and :func:`~repro_torch.kernels.ops.flash_decode`, which launch the hand
 CUDA kernels for tensors on the card and run the plain version (the
 reference's jnp math, with its bf16 rounding of scores and weights) for
 tensors on the CPU.
+The training forward ``attention_fwd`` goes through
+:func:`~repro_torch.kernels.ops.flash_attention_trainable`, whose backward
+is the hand backward kernel (the reference differentiates its jnp path).
 
 Score math is fp32; activations bf16.
 """
@@ -114,6 +117,19 @@ def attend(q, k, v, spec: AttnSpec):
     attention; the kernel covers every mask kind at any length."""
     return ops.flash_attention(q, k, v, kind=spec.kind, window=spec.window,
                                softcap=spec.logit_softcap)
+
+
+def attention_fwd(params: Attention, x, spec: AttnSpec, positions=None):
+    """Differentiable self-attention for training: x (B,S,D) -> (B,S,D),
+    through the flash-attention kernels forward and backward (the plain
+    versions on the CPU)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    q, k, v = _project_qkv(params, x, spec, positions)
+    out = ops.flash_attention_trainable(q, k, v, spec.kind, spec.window,
+                                        spec.logit_softcap)
+    return _out(out, params.wo)
 
 
 def attention_prefill(params: Attention, x, spec: AttnSpec, positions=None):

@@ -7,15 +7,25 @@ an ``nn.Module`` holding its weights in the reference's layout.  Only the
 ``dense`` block kind (attention + MLP, pre-norm residual) is ported; the
 other kinds (``moe``, ``rglru``, ``rwkv``, ``enc``, ``encdec``) and the
 ``encdec`` and ``vlm`` families raise ``NotImplementedError`` (ROADMAP
-queue A, item 8); the training forward ``model_fwd`` waits for the
-training slice.
+queue A, item 8).
+
+``model_fwd`` is the training forward (the serve traversals are in
+:mod:`.decode`).  The reference scans its stacked layers with
+``jax.checkpoint`` around each super-block (one repetition of the layer
+pattern) under ``remat="block"``, and a two-level sqrt schedule under
+``"full"``; here the layers run in a Python loop and the same regions are
+wrapped in ``torch.utils.checkpoint`` (non-reentrant), which saves only
+each region's input and recomputes the rest in the backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LayerKind, ModelConfig
 from . import attention as attn_mod
@@ -24,6 +34,7 @@ from .common import (
     _param,
     fanin_init,
     layer_norm,
+    matmul,
     normal_init,
     ones_init,
     rms_norm,
@@ -196,3 +207,97 @@ def _embed_tokens(params: Model, tokens, config: ModelConfig):
         x = (x.float() * torch.sqrt(torch.tensor(
             float(config.d_model), device=x.device))).to(x.dtype)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Training forward.
+# ---------------------------------------------------------------------------
+
+
+def block_fwd(params: Block, x, config: ModelConfig, lk: LayerKind,
+              positions):
+    """One residual block.  Returns (x, aux); aux (the MoE load-balance
+    loss in the reference) is 0 for dense blocks."""
+    spec = attn_spec_for(config, lk)
+    h = apply_norm(params.ln1, x, config)
+    x = x + attn_mod.attention_fwd(params.attn, h, spec, positions)
+    h = apply_norm(params.ln2, x, config)
+    x = x + mlp_mod.mlp_fwd(params.ffn, h, config.activation)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _run_blocks(blocks, config: ModelConfig, positions, x, aux):
+    for block in blocks:
+        x, a = block_fwd(block, x, config, block.kind, positions)
+        aux = aux + a
+    return x, aux
+
+
+def _remat(fn, config: ModelConfig):
+    """``fn(x, aux)`` as is under ``remat="none"``, else checkpointed: its
+    backward recomputes it from its inputs, saving nothing inside."""
+    if config.remat == "none":
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _sqrt_groups(n: int) -> tuple[int, int]:
+    """Factor n = groups * per_group with groups ~ sqrt(n)."""
+    g = max(1, int(math.isqrt(n)))
+    while n % g:
+        g -= 1
+    return g, n // g
+
+
+def stack_fwd(layers, x, config: ModelConfig, positions):
+    """Apply the layer stack.  Returns (x, aux).
+
+    The reference's scanned part (``reps`` repetitions of the pattern) runs
+    one super-block at a time; ``remat`` "block" checkpoints each
+    super-block, "full" checkpoints groups of about sqrt(reps) of them with
+    each super-block inside checkpointed again (the backward keeps only
+    the group boundaries and recomputes within a group).  The unscanned
+    tail runs without remat, as in the reference.
+    """
+    plan = stack_plan(config)
+    P = len(plan.pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    supers = [functools.partial(_run_blocks, layers[r * P:(r + 1) * P],
+                                config, positions)
+              for r in range(plan.reps)]
+    groups, per_group = (_sqrt_groups(plan.reps) if config.remat == "full"
+                         else (plan.reps, 1))
+    if groups > 1 and per_group > 1:
+        inner = [_remat(f, config) for f in supers]
+
+        def group(fns, x, aux):
+            for f in fns:
+                x, aux = f(x, aux)
+            return x, aux
+
+        for g in range(groups):
+            x, aux = _remat(functools.partial(
+                group, inner[g * per_group:(g + 1) * per_group]),
+                config)(x, aux)
+    else:
+        for f in supers:
+            x, aux = _remat(f, config)(x, aux)
+    return _run_blocks(layers[plan.reps * P:], config, positions, x, aux)
+
+
+def model_fwd(params: Model, batch: dict, config: ModelConfig):
+    """Training/scoring forward.  batch: {"tokens": (B, S) int64}.  Returns
+    (hidden (B, S, D) after the final norm, aux loss scalar)."""
+    check_ported(config)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed_tokens(params, tokens, config)
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None] \
+        .expand(B, S)
+    x, aux = stack_fwd(params.layers, x, config, pos)
+    return apply_norm(params.final_norm, x, config), aux
+
+
+def logits_fn(params: Model, hidden):
+    """(B, S, D) -> (B, S, V) logits in the hidden states' type."""
+    return matmul(hidden, params.lm_head)

@@ -1,2 +1,3 @@
 """Runtime step builders (the counterpart of the reference package's
-``runtime``); this slice ports the serve steps for one device."""
+``runtime``), for one device: the serve steps, the train step with its
+loss, and the fault supervisor."""

@@ -195,3 +195,110 @@ def test_attention_wrappers_refuse_bad_shapes_and_devices():
     ops.flash_attention(x, x, x)
     ops.flash_decode(x[:, :1], x, x, torch.ones((1, 8), dtype=torch.bool))
     assert ops.LAUNCHES == before          # the plain version is no launch
+
+
+def _jax_attention_vjp(q, k, v, dout, kind, window, softcap=0.0):
+    """(dq, dk, dv) of the reference's ``flash_attention_trainable`` (the
+    Pallas forward in interpret mode, ``_fat_bwd`` backward: the vjp of
+    its jnp attention), as float32 numpy."""
+    import jax
+
+    _, vjp = jax.vjp(lambda q, k, v: jops.flash_attention_trainable(
+        q, k, v, kind, window, softcap), _jnp(q), _jnp(k), _jnp(v))
+    return [np.asarray(g, np.float32) for g in vjp(_jnp(dout))]
+
+
+def _attention_grad_cases():
+    return [(kind, window, H, K)
+            for kind, window in (("causal", 0), ("window", 48),
+                                 ("chunk", 64), ("bidir", 0))
+            for H, K in ((4, 4), (4, 1), (8, 2))]     # MHA, MQA, GQA
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind,window,H,K", _attention_grad_cases())
+def test_flash_attention_bwd_matches_jax_grad(dtype, kind, window, H, K):
+    """The plain backward (the CPU path of ``ops.flash_attention_bwd``)
+    against ``jax.vjp`` of the reference's ``flash_attention_trainable``:
+    float32 at atol/rtol 1e-3 (tests/test_kernels.py:77-97); bf16 no
+    farther from the reference than the plain version's own bf16 gradient
+    is from its float32 one on the same inputs."""
+    B, S, hd = 1, 128, 32
+    q, k, v, dout = _arrays(S * H + K, [(B, S, H, hd), (B, S, K, hd),
+                                        (B, S, K, hd), (B, S, H, hd)], dtype)
+    got = ops.flash_attention_bwd(*map(_torch, (q, k, v, dout)), kind=kind,
+                                  window=window)
+    assert [g.dtype for g in got] == [_torch(q).dtype] * 3
+    want = _jax_attention_vjp(q, k, v, dout, kind, window)
+    if dtype == "float32":
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), w, atol=1e-3, rtol=1e-3)
+        return
+    f32 = ops.flash_attention_bwd(*(_torch(a).float() for a in (q, k, v,
+                                                                dout)),
+                                  kind=kind, window=window)
+    for g, w, g32 in zip(got, want, f32):
+        gap = float(np.abs(_np(g) - _np(g32)).max())
+        assert float(np.abs(_np(g) - w).max()) <= gap
+
+
+def test_flash_attention_trainable_grads_match_jax():
+    """Autograd through the port's training attention (the CPU path of
+    ``ops.flash_attention_trainable``) gives the reference's gradients of
+    the same loss, and its forward the reference's output."""
+    import jax
+
+    q, k, v = _arrays(21, [(2, 96, 4, 32), (2, 96, 2, 32), (2, 96, 2, 32)],
+                      "float32")
+    leaves = [_torch(a).requires_grad_(True) for a in (q, k, v)]
+    out = ops.flash_attention_trainable(*leaves, "window", 40)
+    (out.float() ** 2).sum().backward()
+
+    def loss(q, k, v):
+        return jnp.sum(jops.flash_attention_trainable(
+            q, k, v, "window", 40, 0.0).astype(jnp.float32) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(_jnp(q), _jnp(k), _jnp(v))
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(
+        _np(out.detach()), _jax_ref_attention(q, k, v, kind="window",
+                                              window=40), **_tol("float32"))
+
+
+@pytest.mark.parametrize("kind,window,softcap", [
+    ("causal", 0, 0.0), ("chunk", 32, 0.0), ("bidir", 0, 10.0)])
+def test_flash_attention_stats_rebuild_the_forward(kind, window, softcap):
+    """The row statistics the forward kernel hands to the backward
+    (max score m and sum of exponentials l per row, the plain version's
+    ``flash_attention_stats_ref`` on the CPU): exp(s - m) / l are the
+    softmax weights, so they rebuild the attention output."""
+    q, k, v = (_torch(a) for a in _arrays(
+        5, [(1, 80, 4, 32), (1, 80, 2, 32), (1, 80, 2, 32)], "float32"))
+    out, (m, l) = ops.flash_attention(q, k, v, kind=kind, window=window,
+                                      softcap=softcap, return_stats=True)
+    assert m.shape == l.shape == (1, 4, 80) and m.dtype == torch.float32
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(1, 80, 2, 2, 32),
+                     k).reshape(1, 4, 80, 80) / 32 ** 0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(~ref.attention_mask(kind, window, 80, 80), -np.inf)
+    w = torch.exp(s - m[..., None]) / l[..., None]
+    rebuilt = torch.einsum("bhqs,bshd->bqhd", w,
+                           v.repeat_interleave(2, dim=2))
+    torch.testing.assert_close(rebuilt, out, atol=2e-5, rtol=1e-4)
+
+
+def test_flash_attention_bwd_refuses_bad_shapes():
+    x = torch.zeros((1, 8, 4, 32))
+    kv = torch.zeros((1, 8, 2, 32))
+    with pytest.raises(ValueError, match="dout"):
+        ops.flash_attention_bwd(x, kv, kv, torch.zeros((1, 8, 4, 16)))
+    with pytest.raises(ValueError, match="unknown attention kind"):
+        ops.flash_attention_bwd(x, kv, kv, x, kind="sliding")
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        ops.flash_attention_bwd(x, kv, kv, x.to("meta"))
+    before = dict(ops.LAUNCHES)
+    ops.flash_attention_bwd(x, kv, kv, x)
+    assert ops.LAUNCHES == before          # the plain version is no launch

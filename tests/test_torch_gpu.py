@@ -210,3 +210,150 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="hd <= 128"):
         y = torch.zeros((1, 8, 2, 256), device=cuda)
         ops.flash_attention(y, y, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N", [(1, 1), (3, 5), (64, 384), (100, 3),
+                                 (7, 5000), (32768, 768), (768, 32768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_kernel_on_card(cuda, M, N, dtype):
+    """Bit-equal to the plain version: payload and scales."""
+    g = _gen(M + N, cuda)
+    x = (3.0 * torch.randn((M, N), generator=g, device=cuda)).to(dtype)
+    n0 = ops.LAUNCHES["quantize_int8"]
+    q, s = ops.quantize_int8(x)
+    qr, sr = ref.quantize_int8_ref(x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quantize_int8"] == n0 + 1
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+@pytest.mark.gpu
+def test_quantize_int8_kernel_odd_views_and_leading_dims(cuda):
+    """Unaligned rows (no 16-byte path), a 3-D tensor, an all-zero row."""
+    g = _gen(3, cuda)
+    x = torch.randn((10, 17), generator=g, device=cuda)[:, 1:].contiguous()
+    y = torch.randn((2, 3, 96), generator=g, device=cuda)
+    y[1, 2] = 0.0
+    for t in (x, x[1:].contiguous(), y):
+        q, s = ops.quantize_int8(t)
+        qr, sr = ref.quantize_int8_ref(t)
+        torch.cuda.synchronize()
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.quantize_int8(y.transpose(0, 1))
+    with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
+        ops.quantize_int8(y.half())
+
+
+def _within_bf16_gap(got, want, want32):
+    """Each element of ``got`` within the plain bf16 result's largest gap to
+    the plain float32 one, or within one bf16 step of its value: two right
+    roundings of float32 sums taken in another order can land on
+    neighbouring bf16 values, a step that exceeds the gap at large
+    magnitudes (the same rule as chip_smoke.py's)."""
+    gap = float((want.float() - want32.float()).abs().max())
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp(min=2.0 ** -126))) - 7)
+    return bool(((got.float() - want.float()).abs()
+                 <= torch.clamp(ulp, min=gap)).all())
+
+
+def _bwd_inputs(B, S, H, K, hd, dev, seed):
+    g = _gen(seed, dev)
+    return [torch.randn(s, generator=g, device=dev)
+            for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd),
+                      (B, S, H, hd))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,window,softcap", [
+    ("causal", 0, 0.0), ("window", 48, 0.0), ("chunk", 64, 0.0),
+    ("bidir", 0, 0.0), ("causal", 0, 20.0)])
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (4, 256, 12, 12, 64), (2, 100, 8, 2, 128), (1, 130, 4, 1, 32),
+    (1, 77, 4, 4, 96)])
+def test_flash_attention_bwd_kernel_on_card(cuda, kind, window, softcap, B,
+                                            S, H, K, hd):
+    """The backward kernel against the plain version (autograd through the
+    forward) on the card: float32 at atol/rtol 1e-3 (tests/test_kernels.py:
+    77-97); bf16 no farther from the plain bf16 gradient than that is from
+    the plain float32 one, or than one bf16 step.  The forward's
+    statistics match the plain row max and sum of exponentials."""
+    base = _bwd_inputs(B, S, H, K, hd, cuda, B * S + H + hd)
+    kw = dict(kind=kind, window=window, softcap=softcap)
+    plain = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (t.to(dt) for t in base)
+        o, (m, l) = ops.flash_attention(q, k, v, return_stats=True, **kw)
+        mr, lr = ref.flash_attention_stats_ref(q, k, **kw)
+        n0 = ops.LAUNCHES["flash_attention_bwd"]
+        got = ops.flash_attention_bwd(q, k, v, dout, (m, l), **kw)
+        plain[dt] = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+        torch.testing.assert_close(m, mr, **_attn_tol(dt))
+        torch.testing.assert_close(l, lr, rtol=1e-5, atol=0)
+        for gk, gp, g32 in zip(got, plain[dt], plain[torch.float32]):
+            assert gk.dtype == dt
+            if dt == torch.float32:
+                torch.testing.assert_close(gk, gp, atol=1e-3, rtol=1e-3)
+            else:
+                assert _within_bf16_gap(gk, gp, g32)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_kernel_training_shapes(cuda):
+    """qwen3-8b's training head layout (B 1, S 4096, H 32, K 8, hd 128,
+    causal, bf16), strided (model-layout views of a fused qkv buffer), and
+    the same result twice (no atomics)."""
+    g = _gen(11, cuda)
+    S, H, K, hd = 4096, 32, 8, 128
+    qkv = torch.randn((1, S, H + 2 * K, hd), generator=g,
+                      device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+    dout = torch.randn((1, S, H, hd), generator=g, device=cuda).bfloat16()
+    o, stats = ops.flash_attention(q, k, v, return_stats=True)
+    a = ops.flash_attention_bwd(q, k, v, dout, stats)
+    b = ops.flash_attention_bwd(q, k, v, dout, stats)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout)
+    want32 = ref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v,
+                                                               dout)))
+    torch.cuda.synchronize()
+    for x, y, w, w32 in zip(a, b, want, want32):
+        assert torch.equal(x, y)
+        assert _within_bf16_gap(x, w, w32)
+
+
+@pytest.mark.gpu
+def test_flash_attention_trainable_on_card(cuda):
+    """Autograd through the kernels (forward with statistics, backward
+    kernel) against autograd through the plain version, float32."""
+    q, k, v, dout = _bwd_inputs(2, 200, 8, 2, 64, cuda, 4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = dict(ops.LAUNCHES)
+    out = ops.flash_attention_trainable(*leaves, "window", 50)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == \
+        n0["flash_attention_bwd"] + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, kind="window",
+                                       window=50)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, dout = _bwd_inputs(1, 16, 2, 1, 64, cuda, 5)
+    o, stats = ops.flash_attention(q, k, v, return_stats=True)
+    with pytest.raises(ValueError, match="statistics"):
+        ops.flash_attention_bwd(q, k, v, dout)
+    with pytest.raises(ValueError, match="stats m"):
+        ops.flash_attention_bwd(q, k, v, dout, (stats[0][:, :1], stats[1]))
+    with pytest.raises(TypeError, match="types differ"):
+        ops.flash_attention_bwd(q, k, v, dout.bfloat16(), stats)
+    with pytest.raises(ValueError, match="unit stride"):
+        ops.flash_attention_bwd(q, k, v, torch.zeros(
+            (1, 16, 2, 128), device=cuda)[..., ::2], stats)

@@ -47,7 +47,11 @@ def test_every_port_module_imports_without_jax_or_reference():
     names = names.split(",")
     assert int(n) >= 55                        # every module was imported
     for mod in ("configs.qwen3_8b", "models.decode", "runtime.serve",
-                "serving.anneal", "workloads.simulator"):
+                "serving.anneal", "workloads.simulator", "data.pipeline",
+                "runtime.loss", "runtime.train", "runtime.fault_tolerance",
+                "optim.optimizer", "optim.compression",
+                "checkpoint.checkpointer", "launch.train",
+                "launch.train_anneal"):
         assert f"repro_torch.{mod}" in names
     assert leaked == "[]"
 

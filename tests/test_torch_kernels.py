@@ -138,6 +138,65 @@ def test_wrappers_refuse_devices_they_cannot_serve():
     assert ops.LAUNCHES == before          # the plain version is no launch
 
 
+@pytest.mark.parametrize("shape,scale", [
+    ((64, 384), 3.0), ((256, 128), 3.0), ((8, 1024), 3.0), ((512, 33), 1e-3),
+    ((2, 4, 96), 50.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_int8_bit_equal_to_pallas_and_jnp(shape, scale, dtype):
+    """The port's quantizer against the reference's jnp
+    ``compression.quantize_int8`` (what its train step runs): payload and
+    scales bit-equal.  Against the Pallas kernel (interpret mode, float32
+    inputs, as tests/test_kernels.py:229-235 runs it): payload bit-equal,
+    scales to rtol 1e-6.  XLA compiles the Pallas body's ``/ 127.0`` as a
+    product with the reciprocal, which moves some of its scales by one
+    ulp; bf16 inputs put many quotients exactly on a half, where that ulp
+    flips the rounding, so the Pallas kernel itself differs from the jnp
+    version there (as on rows built to have a quotient near a half), and
+    those are held to the jnp version alone."""
+    import ml_dtypes
+
+    from repro.kernels import ops as jops
+    from repro.optim import compression as jcomp
+
+    x = (scale * np.random.default_rng(sum(shape)).standard_normal(shape)
+         ).astype(np.float32)
+    tied = x.copy()
+    tied[..., 0] = 0.5 * tied[..., 1]   # a quotient near a half per row
+    for data in (x, tied):
+        if dtype == "bfloat16":
+            data = data.astype(ml_dtypes.bfloat16)
+            xt = torch.from_numpy(data.view(np.uint16)).view(torch.bfloat16)
+        else:
+            xt = torch.from_numpy(data)
+        q, s = ops.quantize_int8(xt)
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        assert tuple(q.shape) == shape
+        assert tuple(s.shape) == shape[:-1] + (1,)
+        wq, ws = jcomp.quantize_int8(jnp.asarray(data))
+        assert np.array_equal(q.numpy(), np.asarray(wq))
+        assert np.array_equal(s.numpy(), np.asarray(ws))
+    if dtype == "float32":
+        q, s = ops.quantize_int8(torch.from_numpy(x))
+        pq, ps = jops.quantize_int8(jnp.asarray(x))
+        assert np.array_equal(q.numpy(), np.asarray(pq))
+        np.testing.assert_allclose(s.numpy(), np.asarray(ps), rtol=1e-6)
+
+
+def test_quantize_int8_rounds_half_to_even_and_clips():
+    """Exact halves round to even, as ``jnp.round``; |q| <= 127; an all-zero
+    row takes the 1e-12 floor and quantizes to 0."""
+    x = torch.tensor([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -126.5, 3.0],
+                      [0.0] * 8])
+    q, s = ops.quantize_int8(x)
+    assert s[0, 0] == 1.0 and s[1, 0] == np.float32(1e-12) / np.float32(127)
+    assert q[0].tolist() == [127, 0, 2, 2, 0, -2, -126, 3]
+    assert q[1].tolist() == [0] * 8
+    want = jref.quantize_int8_ref(jnp.asarray(x.numpy()))
+    assert np.array_equal(q.numpy(), np.asarray(want[0]))
+    with pytest.raises(ValueError, match="at least one"):
+        ops.quantize_int8(torch.zeros((3, 0)))
+
+
 def _tests_calling(path, name):
     """Names of the test functions in ``path`` that call ``ops.<name>``,
     with whether each is marked ``gpu``."""

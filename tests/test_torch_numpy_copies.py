@@ -244,3 +244,73 @@ def test_multi_tenant_streams_are_identical():
         out_b.append(next(mb))
     assert out_a == out_b
     assert ma.blend_of("t2") == mb.blend_of("t2")
+
+
+@pytest.mark.parametrize("n_hosts,host_id", [(1, 0), (2, 1)])
+def test_synthetic_lm_batches_are_identical(n_hosts, host_id):
+    from repro.data import pipeline as ref_pipe
+    from repro_torch.data import pipeline as pt_pipe
+
+    kw = dict(vocab=512, seq_len=64, global_batch=4, seed=3,
+              mean_doc_len=24, n_hosts=n_hosts, host_id=host_id)
+    a = ref_pipe.SyntheticLM(ref_pipe.DataConfig(**kw))
+    b = pt_pipe.SyntheticLM(pt_pipe.DataConfig(**kw))
+    for step in (0, 1, 7, 100):
+        x, y = a.batch_at(step), b.batch_at(step)
+        assert x.keys() == y.keys()
+        for k in x:
+            assert x[k].dtype == y[k].dtype
+            assert np.array_equal(x[k], y[k])
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_make_pipeline_streams_are_identical(prefetch):
+    from repro.data import pipeline as ref_pipe
+    from repro_torch.data import pipeline as pt_pipe
+
+    kw = dict(vocab=300, seq_len=32, global_batch=2, seed=1)
+    a = ref_pipe.make_pipeline(ref_pipe.DataConfig(**kw), start_step=5,
+                               prefetch=prefetch)
+    b = pt_pipe.make_pipeline(pt_pipe.DataConfig(**kw), start_step=5,
+                              prefetch=prefetch)
+    for _ in range(3):
+        (sa, xa), (sb, xb) = next(a), next(b)
+        assert sa == sb
+        assert all(np.array_equal(xa[k], xb[k]) for k in xa)
+    for it in (a, b):
+        if hasattr(it, "close"):
+            it.close()
+
+
+def _supervised_run(mod, fail_steps, rate, seed, max_restarts=8):
+    saved = {"state": 0, "step": 0}
+    log = []
+    inj = mod.FailureInjector(fail_steps=fail_steps, rate=rate, seed=seed)
+
+    def step_fn(state, step):
+        inj.check(step)
+        log.append(step)
+        if step % 3 == 2:
+            saved.update(state=state + 1, step=step + 1)
+        return state + 1
+
+    sup = mod.Supervisor(restore=lambda: (saved["state"], saved["step"]),
+                         max_restarts=max_restarts)
+    try:
+        state, final = sup.run(0, 0, 20, step_fn)
+    except RuntimeError as e:
+        return ("exhausted", str(e), log, sup.restarts)
+    return (state, final, log, sup.restarts,
+            [(e["step"], e["error"]) for e in sup.events])
+
+
+@pytest.mark.parametrize("fail_steps,rate,seed", [
+    ((5, 11), 0.0, 0), ((), 0.2, 4), ((3,), 0.5, 1)])
+def test_fault_tolerance_copy_is_identical(fail_steps, rate, seed):
+    from repro.runtime import fault_tolerance as ref_ft
+    from repro_torch.runtime import fault_tolerance as pt_ft
+
+    assert _supervised_run(ref_ft, fail_steps, rate, seed) \
+        == _supervised_run(pt_ft, fail_steps, rate, seed)
+    with pytest.raises(pt_ft.StepFailure):
+        pt_ft.FailureInjector(fail_steps=(2,)).check(2)

@@ -273,4 +273,4 @@ def test_cpu_main_path_launches_no_kernel():
                          steps_per_round=8, n_chains=2, device="cpu").run(2)
     assert ops.LAUNCHES == dict.fromkeys(
         ("sizing_latency", "fused_interp", "flash_attention",
-         "flash_decode"), 0)
+         "flash_decode", "flash_attention_bwd", "quantize_int8"), 0)
