@@ -23,6 +23,8 @@ from .core.surrogate import MeasurementStore
 from .device import resolve_device
 from .models.attention import Attention
 from .models.mlp import MLP
+from .models.rglru import RGLRU
+from .models.rwkv6 import RWKVChannel, RWKVTime
 from .models.transformer import Block, Model, Norm, stack_plan
 from .optim.optimizer import OptState
 from .runtime.train import TrainState, TrainStepOptions
@@ -111,7 +113,9 @@ def model_params_from_jax(tree: Mapping[str, Any], config: Any,
     dicts of numpy or JAX arrays), ``config`` the port's copy of the
     model's config.  The weights go to ``device``, the card unless the
     caller names another.  The scanned stack's leading reps dimension is
-    split into one block per layer.  Trees built with tp > 1 (padded
+    split into one block per layer; a block carries its kind's subtrees
+    (``attn``/``ffn``, ``rec``/``ffn`` or ``time``/``chan``) and its
+    norms (with their biases under LayerNorm).  Trees built with tp > 1 (padded
     heads) are refused: one device has no use for the padding."""
     dev = resolve_device(device)
     plan = stack_plan(config)
@@ -121,8 +125,22 @@ def model_params_from_jax(tree: Mapping[str, Any], config: Any,
         return Norm(_tensor(p["scale"], dev),
                     None if "bias" not in p else _tensor(p["bias"], dev))
 
+    def weights(cls, p):
+        return cls(**{n: _tensor(p[n], dev) for n in cls.NAMES})
+
+    def mlp(f):
+        return MLP(_tensor(f["w_in"], dev), _tensor(f["w_out"], dev),
+                   _tensor(f["w_gate"], dev) if "w_gate" in f else None)
+
     def block(p, lk):
-        a, f = p["attn"], p["ffn"]
+        norms = (lk, norm(p["ln1"]), norm(p["ln2"]))
+        if lk.kind == "rglru":
+            return Block(*norms, rec=weights(RGLRU, p["rec"]),
+                         ffn=mlp(p["ffn"]))
+        if lk.kind == "rwkv":
+            return Block(*norms, time=weights(RWKVTime, p["time"]),
+                         chan=weights(RWKVChannel, p["chan"]))
+        a = p["attn"]
         H, K = np.shape(a["wq"])[1], np.shape(a["wk"])[1]
         if (H, K) != (config.n_heads, config.n_kv_heads):
             raise ValueError(
@@ -130,12 +148,11 @@ def model_params_from_jax(tree: Mapping[str, Any], config: Any,
                 f"{config.name} has {config.n_heads} / {config.n_kv_heads}: "
                 f"a tree built with tp > 1 has padded heads; build it with "
                 f"tp=1")
-        return Block(lk, norm(p["ln1"]), norm(p["ln2"]), Attention(
+        return Block(*norms, attn=Attention(
             *(_tensor(a[w], dev) for w in ("wq", "wk", "wv", "wo")),
             q_norm=_tensor(a["q_norm"], dev) if "q_norm" in a else None,
             k_norm=_tensor(a["k_norm"], dev) if "k_norm" in a else None),
-            MLP(_tensor(f["w_in"], dev), _tensor(f["w_out"], dev),
-                _tensor(f["w_gate"], dev) if "w_gate" in f else None))
+            ffn=mlp(p["ffn"]))
 
     def unstack(t, r):
         if isinstance(t, Mapping):

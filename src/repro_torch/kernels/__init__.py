@@ -12,11 +12,15 @@ from .ops import (
     flash_attention_trainable,
     flash_decode,
     fused_interp,
+    pairwise_sqdist,
     quantize_int8,
     reset_launches,
+    rglru_scan,
     sizing_latency,
+    wkv6,
 )
 
 __all__ = ["LAUNCHES", "flash_attention", "flash_attention_bwd",
            "flash_attention_trainable", "flash_decode", "fused_interp",
-           "quantize_int8", "reset_launches", "sizing_latency"]
+           "pairwise_sqdist", "quantize_int8", "reset_launches",
+           "rglru_scan", "sizing_latency", "wkv6"]

@@ -26,8 +26,9 @@ _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Per-source extra flags.  No source uses --use_fast_math: parity with the
-#: plain versions needs IEEE division, expf and sqrtf.  sizing_latency also
-#: turns off multiply-add contraction (see the note in its source).
+#: plain versions needs IEEE division, expf and sqrtf.  sizing_latency and
+#: rglru_scan also turn off multiply-add contraction (see the notes in
+#: their sources): both are bit-equal to their plain versions.
 SOURCES: dict[str, tuple[str, ...]] = {
     "sizing_latency": ("-fmad=false",),
     "fused_interp": (),
@@ -35,6 +36,9 @@ SOURCES: dict[str, tuple[str, ...]] = {
     "flash_decode": (),
     "flash_attention_bwd": (),
     "quantize_int8": (),
+    "rglru_scan": ("-fmad=false",),
+    "wkv6": (),
+    "pairwise_sqdist": (),
 }
 
 _lock = threading.Lock()

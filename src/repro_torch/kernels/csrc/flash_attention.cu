@@ -32,7 +32,10 @@
 // TFLOP/s float32 outside them).  This first version computes with float32
 // FMAs from shared memory, so it is bounded by the shared-memory reads of
 // its inner products, several times the FMA time; the tensor cores
-// (mma.sync / wgmma) are a later change.
+// (mma.sync / wgmma) are a later change.  At recurrentgemma-2b's prefill
+// (B 16, S 512, H 10, K 1, hd 256, window 2048, so causal at S 512) it
+// must move about 92 MB (0.028 ms) and do about 21.5 GFLOP of products
+// (0.022 ms on the tensor cores).
 //
 // Design: the TPU kernel's sequential k-block grid axis, with its running
 // statistics in VMEM scratch, becomes a loop inside the block.  The TPU
@@ -44,12 +47,16 @@
 // more products; it keeps the card's model within the bf16 tolerance of
 // the host's plain path at full width, which a one-pass float32 kernel
 // (max logit gap 0.055 on a 2-layer qwen3-8b) did not.
-// A block of 256 threads owns 64 query rows of one (b, h); four threads
-// share a row: each holds 8 of a 32-key tile's scores, the row's max and
-// sum (kept equal in the four by shuffles) and a quarter of its output
-// accumulator in registers.  q, then each k (and v) tile, are staged as
-// float32 in shared memory (rows padded by one word, so the threads of a
-// warp fall on distinct banks).  The causal, window and chunk loops start
+// A block of 256 threads owns 64 query rows of one (b, h) up to hd 128,
+// 32 at hd 256; four threads share a row (eight at hd 256): each holds 8
+// (4) of a 32-key tile's scores, the row's max and sum (kept equal in the
+// row's threads by shuffles) and a quarter (an eighth) of its output
+// accumulator (at most 32 floats) in registers.  q, then each k (and v)
+// tile, are staged as float32 in shared memory (rows padded by one word,
+// so the threads of a warp fall on distinct banks).  At hd 256 that is
+// 102.8 KB (q 32 x 257, k 32 x 257, v 32 x 256 and the weights 32 x 33
+// floats), above the 48 KB of static shared memory, so every instance
+// takes it as dynamic shared memory.  The causal, window and chunk loops start
 // and stop at the first and last tile the block's rows can see, as the
 // TPU kernel's `relevant` test does; rows past Sq and keys past Sk (ragged
 // tiles) are masked here, so Sq and Sk need not be multiples of any tile.
@@ -64,12 +71,24 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 32;        // keys per tile
-constexpr int kThreads = 256;  // 4 threads per query row
-constexpr int kPerRow = 4;
-constexpr int kCols = kBK / kPerRow;   // scores per thread per tile
+constexpr int kThreads = 256;
 constexpr float kNegInf = -0.7f * FLT_MAX;
+
+// threads that share a query row: 4 up to hd 128, 8 at hd 256, so that a
+// thread holds hd / kPerRow = 32 output accumulators at every head dim
+// (64 at hd 256 with 4 per row would leave too few registers for 256
+// threads).  A block of 256 threads owns kThreads / kPerRow query rows.
+template <int HD>
+struct Tile {
+  static constexpr int kPerRow = HD > 128 ? 8 : 4;
+  static constexpr int kBQ = kThreads / kPerRow;   // query rows per block
+  static constexpr int kCols = kBK / kPerRow;      // scores per thread
+  static constexpr size_t smem_bytes() {
+    return sizeof(float) * (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD +
+                            kBQ * (kBK + 1));
+  }
+};
 
 enum Kind { kCausal = 0, kWindow = 1, kChunk = 2, kBidir = 3 };
 
@@ -107,6 +126,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        int Sq, int Sk, int hd, int G, int kind, int window,
                        float sqrt_hd, float softcap) {
+  constexpr int kPerRow = Tile<HD>::kPerRow;
+  constexpr int kBQ = Tile<HD>::kBQ;
+  constexpr int kCols = Tile<HD>::kCols;
   constexpr int LD = HD + 1;            // padded row, in floats
   constexpr int kAcc = HD / kPerRow;    // output columns per thread
   extern __shared__ float smem[];
@@ -121,7 +143,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = h / G;
   const int r = tid / kPerRow;          // this thread's query row
-  const int part = tid % kPerRow;       // its quarter of the row
+  const int part = tid % kPerRow;       // its part of the row
   const int i = q0 + r;                 // absolute query position
 
   const T* qb = q + b * sq.b + h * sq.h;
@@ -188,16 +210,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float m_tile = kNegInf;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) m_tile = fmaxf(m_tile, s[c]);
-    m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 1));
-    m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 2));
+#pragma unroll
+    for (int x = 1; x < kPerRow; x <<= 1)
+      m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, x));
     const float m_new = fmaxf(m_run, m_tile);
     // a row with no key seen yet adds nothing (exp(NEG_INF - NEG_INF) is 1)
     const bool any = m_new > kNegInf * 0.5f;
     float l_tile = 0.0f;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) l_tile += any ? expf(s[c] - m_new) : 0.0f;
-    l_tile += __shfl_xor_sync(0xffffffffu, l_tile, 1);
-    l_tile += __shfl_xor_sync(0xffffffffu, l_tile, 2);
+#pragma unroll
+    for (int x = 1; x < kPerRow; x <<= 1)
+      l_tile += __shfl_xor_sync(0xffffffffu, l_tile, x);
     if (any) l_run = l_run * expf(m_run - m_new) + l_tile;
     m_run = m_new;
   }
@@ -216,7 +240,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           ? round_to(expf(s[c] - m_run) / l_run, T()) : 0.0f;
       s_p[r * (kBK + 1) + part + kPerRow * c] = w;
     }
-    __syncwarp();      // the row's w, written by its four lanes of one warp
+    __syncwarp();      // the row's w, written by its lanes of one warp
     const float* prow = s_p + r * (kBK + 1);
 #pragma unroll 4
     for (int c = 0; c < kBK; ++c) {
@@ -250,8 +274,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
            Strides so, int B, int H, int Sq, int Sk, int hd, int G, int kind,
            int window,
            float softcap, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) *
-      (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1));
+  const size_t bytes = Tile<HD>::smem_bytes();
+  constexpr int kBQ = Tile<HD>::kBQ;
   auto kern = flash_attention_kernel<T, HD>;
   static bool configured = false;   // once per instantiation and process
   if (!configured) {
@@ -281,7 +305,7 @@ extern "C" int flash_attention_launch(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || K < 1 || H % K != 0 || Sq < 1 || Sk < 1 || hd < 1 ||
-      hd > 128 || kind < 0 || kind > 3)
+      hd > 256 || kind < 0 || kind > 3)
     return cudaErrorInvalidValue;
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
@@ -293,11 +317,13 @@ extern "C" int flash_attention_launch(
                            Sq, Sk, hd, G, kind, window, softcap, s);
   if (dtype == 0) {
     if (hd <= 64) REPRO_FA_CASE(float, 64)
-    REPRO_FA_CASE(float, 128)
+    if (hd <= 128) REPRO_FA_CASE(float, 128)
+    REPRO_FA_CASE(float, 256)
   }
   if (dtype == 1) {
     if (hd <= 64) REPRO_FA_CASE(__nv_bfloat16, 64)
-    REPRO_FA_CASE(__nv_bfloat16, 128)
+    if (hd <= 128) REPRO_FA_CASE(__nv_bfloat16, 128)
+    REPRO_FA_CASE(__nv_bfloat16, 256)
   }
 #undef REPRO_FA_CASE
   return cudaErrorInvalidValue;

@@ -17,10 +17,16 @@
 // Bound on this card: bytes.  Every valid cache row is read once (k and v,
 // 2 * hd elements per (b, kvh, slot)) for 4 * G * hd operations; at the
 // serve path's step (B 16, K 8, W 529, hd 128, G 4, bf16) that is 34.7 MB,
-// 0.0104 ms at 3.35 TB/s, against 0.2 GFLOP.
+// 0.0104 ms at 3.35 TB/s, against 0.2 GFLOP; at recurrentgemma-2b's step
+// (B 16, K 1, W 529, hd 256, G 10) 8.7 MB, 0.0026 ms.
 //
 // Design: one block of 8 warps per (b, kvh) holds its G query heads, so a
 // cache row is read for all G heads at once (the TPU kernel's grouping).
+// A thread keeps hd / 32 query values and as many accumulators per head
+// in registers, so a block holds at most 8 heads up to hd 128 and 4 at
+// hd 256; a kv head with more query heads (recurrentgemma-2b: 10 at hd
+// 256) splits them into groups of equal size, one block each, which read
+// the same cache rows (from L2 after the first).
 // The cache is read in place in the model's (B, W, K, hd) layout: the TPU
 // wrapper transposed both caches to (B, K, W, hd) on every call, a full
 // cache copy per layer per token, which this kernel does not need.  The
@@ -39,7 +45,8 @@
 // are reduced across the warp by shuffles, all together.  W need not be a multiple of
 // anything; invalid slots are skipped, not loaded.  Splitting W over
 // several blocks (split-K) is left for a later change: with B * K = 128
-// blocks on 132 SMs the serve path fills the card once.
+// blocks on 132 SMs qwen3-8b's serve path fills the card once, and
+// recurrentgemma-2b's (B 16, K 1, three head groups) has 48 blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,15 +137,18 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc,
                     const uint8_t* __restrict__ valid, T* __restrict__ o,
-                    int W, int K, int G, int hd, float sqrt_hd, float softcap,
-                    int vec_ok) {
+                    int W, int K, int G, int n_grp, int gs, int hd,
+                    float sqrt_hd, float softcap, int vec_ok) {
   constexpr int EPL = HD / 32;
   __shared__ float s_m[kWarps][GMAX];
   __shared__ float s_l[kWarps][GMAX];
   __shared__ float s_acc[kWarps][GMAX][HD];
 
-  const int b = blockIdx.x / K;
-  const int kvh = blockIdx.x % K;
+  const int grp = blockIdx.x % n_grp;
+  const int kvh = blockIdx.x / n_grp % K;
+  const int b = blockIdx.x / n_grp / K;
+  const int g0 = grp * gs;             // the block's first query head of kvh
+  const int Gb = min(gs, G - g0);      // and its number of them (<= GMAX)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int H = K * G;
@@ -149,9 +159,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
     for (int e = 0; e < EPL; ++e) qv[g][e] = 0.0f;
-    if (g < G) {
-      load_row<T, EPL>(q + ((long long)b * H + kvh * G + g) * hd, lane, hd,
-                       vec, qv[g]);
+    if (g < Gb) {
+      load_row<T, EPL>(q + ((long long)b * H + kvh * G + g0 + g) * hd, lane,
+                       hd, vec, qv[g]);
     }
   }
 
@@ -281,24 +291,25 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int e = 0; e < EPL; ++e) s_acc[warp][g][lane * EPL + e] = acc[g][e];
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < G * hd; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < Gb * hd; idx += kThreads) {
     const int g = idx / hd, dd = idx % hd;
     float A = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) A += s_acc[w][g][dd];
     // l is 0 only when no slot is valid: then every accumulator is 0
-    Elem<T>::put(o + ((long long)b * H + kvh * G + g) * hd + dd, A);
+    Elem<T>::put(o + ((long long)b * H + kvh * G + g0 + g) * hd + dd, A);
   }
 }
 
 template <typename T, int HD, int GMAX>
 int launch(const void* q, const void* kc, const void* vc, const void* valid,
-           void* o, int B, int W, int K, int G, int hd, float softcap,
-           int vec_ok, cudaStream_t stream) {
-  flash_decode_kernel<T, HD, GMAX><<<B * K, kThreads, 0, stream>>>(
+           void* o, int B, int W, int K, int G, int n_grp, int gs, int hd,
+           float softcap, int vec_ok, cudaStream_t stream) {
+  flash_decode_kernel<T, HD, GMAX><<<B * K * n_grp, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const uint8_t*>(valid),
-      static_cast<T*>(o), W, K, G, hd, sqrtf((float)hd), softcap, vec_ok);
+      static_cast<T*>(o), W, K, G, n_grp, gs, hd, sqrtf((float)hd), softcap,
+      vec_ok);
   return cudaGetLastError();
 }
 
@@ -306,16 +317,22 @@ template <typename T>
 int dispatch(const void* q, const void* kc, const void* vc,
              const void* valid, void* o, int B, int W, int K, int G, int hd,
              float softcap, int vec_ok, cudaStream_t s) {
-  // per thread GMAX * hd / 32 accumulators and as many query values
+  // A thread holds GMAX * hd / 32 accumulators and as many query values:
+  // at most 32 of each, so GMAX is 8 up to hd 128 and 4 at hd 256.  The G
+  // query heads of a kv head are split into n_grp groups of gs <= GMAX
+  // heads, one block each.
+  const int gmax = hd <= 128 ? 8 : 4;
+  const int n_grp = (G + gmax - 1) / gmax;
+  const int gs = (G + n_grp - 1) / n_grp;
 #define REPRO_FD_CASE(HDM, GM)                                            \
-  if (hd <= HDM && G <= GM)                                               \
-    return launch<T, HDM, GM>(q, kc, vc, valid, o, B, W, K, G, hd,        \
-                              softcap, vec_ok && hd == HDM, s);
-  // the ported configs' head dims (64, 128) and groups (1 to 8)
+  if (hd <= HDM && gs <= GM)                                              \
+    return launch<T, HDM, GM>(q, kc, vc, valid, o, B, W, K, G, n_grp, gs, \
+                              hd, softcap, vec_ok && hd == HDM, s);
   REPRO_FD_CASE(64, 4)
   REPRO_FD_CASE(64, 8)
   REPRO_FD_CASE(128, 4)
   REPRO_FD_CASE(128, 8)
+  REPRO_FD_CASE(256, 4)
 #undef REPRO_FD_CASE
   return cudaErrorInvalidValue;
 }

@@ -23,7 +23,9 @@ from . import build, ref
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 LAUNCHES: dict[str, int] = {"sizing_latency": 0, "fused_interp": 0,
                              "flash_attention": 0, "flash_decode": 0,
-                             "flash_attention_bwd": 0, "quantize_int8": 0}
+                             "flash_attention_bwd": 0, "quantize_int8": 0,
+                             "rglru_scan": 0, "wkv6": 0,
+                             "pairwise_sqdist": 0}
 
 
 def reset_launches() -> None:
@@ -47,6 +49,10 @@ _SIGNATURES = {
                       [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_P]),
     "flash_decode": ("flash_decode_launch",
                      [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+    "rglru_scan": ("rglru_scan_launch", [_P] * 3 + [_I] * 3 + [_P]),
+    "wkv6": ("wkv6_launch", [_P] * 9 + [_I] * 5 + [_P]),
+    "pairwise_sqdist": ("pairwise_sqdist_launch",
+                        [_P] * 3 + [_I] * 3 + [_P]),
 }
 _fns: dict[str, object] = {}
 
@@ -235,7 +241,7 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     chunk (both with ``window``), bidir or cross; ``softcap`` > 0 caps
     scores with tanh.
     Any Sq and Sk; the card reads the inputs through their strides (unit
-    stride in the head dim) and takes hd <= 128.
+    stride in the head dim) and takes hd <= 256.
 
     With a softcap the two paths treat refused keys differently.  The
     plain version (the model's math) adds the -2e30 mask before the tanh,
@@ -260,8 +266,8 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention: q, k, v types differ "
                         f"({q.dtype}, {k.dtype}, {v.dtype})")
-    if hd > 128:
-        raise ValueError(f"flash_attention kernel takes hd <= 128, got {hd}")
+    if hd > 256:
+        raise ValueError(f"flash_attention kernel takes hd <= 256, got {hd}")
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     stats = tuple(torch.empty((B, H, Sq), dtype=torch.float32,
                               device=q.device)
@@ -416,7 +422,7 @@ def flash_decode(q, k_cache, v_cache, valid_mask, *, softcap: float = 0.0):
     -> (B, 1, H, hd) in q's type (float32 or bfloat16; float32 math,
     rounded to q's type where the model rounds).  A sequence with no
     valid slot gets 0 on the card.  The card reads the caches in place; it
-    takes hd <= 128 and H / K <= 8.
+    takes hd <= 256 and any number of query heads per kv head.
     """
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q {tuple(q.shape)}: want (B, 1, H, hd)")
@@ -441,10 +447,8 @@ def flash_decode(q, k_cache, v_cache, valid_mask, *, softcap: float = 0.0):
     if not q.dtype == k_cache.dtype == v_cache.dtype:
         raise TypeError(f"flash_decode: q and cache types differ "
                         f"({q.dtype}, {k_cache.dtype}, {v_cache.dtype})")
-    G = H // K
-    if hd > 128 or G > 8:
-        raise ValueError(f"flash_decode kernel does not take hd {hd} with "
-                         f"{G} query heads per kv head")
+    if hd > 256:
+        raise ValueError(f"flash_decode kernel takes hd <= 256, got {hd}")
     o = torch.empty_like(q)
     if B == 0:
         return o
@@ -459,3 +463,114 @@ def flash_decode(q, k_cache, v_cache, valid_mask, *, softcap: float = 0.0):
             torch.cuda.current_stream().cuda_stream))
     LAUNCHES["flash_decode"] += 1
     return o
+
+
+def rglru_scan(a, b):
+    """The RG-LRU linear recurrence ``h_t = a_t * h_{t-1} + b_t`` from
+    ``h_{-1} = 0``: a, b (B, S, R) -> h (B, S, R) in a's type, the
+    reference kernel's type rule (float32 math).  Each step is one multiply
+    and one add, each rounded, so the card's kernel is bit-equal to the
+    plain version.  The card takes contiguous float32 a and b, any B, S
+    and R.
+    """
+    if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(f"a {tuple(a.shape)}, b {tuple(b.shape)}: want two "
+                         f"(B, S, R)")
+    f32 = torch.float32
+    if not _on_card("rglru_scan", {"a": a, "b": b}, {"a": f32, "b": f32}):
+        return ref.rglru_scan_ref(a, b)
+    B, S, R = a.shape
+    h = torch.empty_like(a)
+    if h.numel() == 0:
+        return h
+    with torch.cuda.device(a.device):
+        _check("rglru_scan", _kernel("rglru_scan")(
+            a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, R,
+            torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["rglru_scan"] += 1
+    return h
+
+
+def wkv6(r, k, v, logw, u, chunk: int = 64, initial_state=None):
+    """The RWKV-6 wkv recurrence in the model layout: r, k, v (B, S, H, hd)
+    of one type (float32 or bfloat16), logw (B, S, H, hd) float32 (the
+    per-step log decays), u (H, hd) float32 and the state (B, H, hd, hd)
+    float32 it starts from (0 if None) -> ``(o, state)``: o (B, S, H, hd)
+    float32 and the final state, the latter kept in scratch by the
+    reference's kernel and needed by the serve path's prefill.  S must be
+    a multiple of ``chunk`` (``min(chunk, S)``), as in the reference.
+
+    The plain version is the model's chunked form
+    (:func:`ref.wkv6_chunked_ref`); the card's kernel runs the sequential
+    recurrence (:func:`ref.wkv6_ref`), the same sums in another order.  The
+    card reads r, k, v and logw through their strides (unit stride in the
+    head dim) and takes hd 32, 64 or 128.
+    """
+    if r.dim() != 4 or not (tuple(r.shape) == tuple(k.shape)
+                            == tuple(v.shape) == tuple(logw.shape)):
+        raise ValueError(f"r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, logw {tuple(logw.shape)}: want "
+                         f"four (B, S, H, hd)")
+    B, S, H, hd = r.shape
+    if tuple(u.shape) != (H, hd):
+        raise ValueError(f"u {tuple(u.shape)} != {(H, hd)}")
+    if initial_state is not None and \
+            tuple(initial_state.shape) != (B, H, hd, hd):
+        raise ValueError(f"initial_state {tuple(initial_state.shape)} != "
+                         f"{(B, H, hd, hd)}")
+    chunk = min(chunk, S)
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"wkv6: S {S} is not a multiple of chunk {chunk}")
+    f32 = torch.float32
+    args = {"r": r, "k": k, "v": v, "logw": logw, "u": u}
+    types = {"r": _ATTN_DTYPES, "k": _ATTN_DTYPES, "v": _ATTN_DTYPES,
+             "logw": f32, "u": f32}
+    if initial_state is not None:
+        args["initial_state"], types["initial_state"] = initial_state, f32
+    if not _on_card("wkv6", args, types, strided=("r", "k", "v", "logw")):
+        return ref.wkv6_chunked_ref(r, k, v, logw, u, chunk,
+                                    initial_state=initial_state)
+    if not r.dtype == k.dtype == v.dtype:
+        raise TypeError(f"wkv6: r, k, v types differ ({r.dtype}, {k.dtype}, "
+                        f"{v.dtype})")
+    if hd not in (32, 64, 128):
+        raise ValueError(f"wkv6 kernel takes hd 32, 64 or 128, got {hd}")
+    o = torch.empty((B, S, H, hd), dtype=f32, device=r.device)
+    state = torch.empty((B, H, hd, hd), dtype=f32, device=r.device)
+    strides = _strides(r, k, v, logw)
+    s0 = 0 if initial_state is None else initial_state.data_ptr()
+    with torch.cuda.device(r.device):
+        _check("wkv6", _kernel("wkv6")(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), s0, o.data_ptr(), state.data_ptr(),
+            ctypes.addressof(strides), B, S, H, hd,
+            int(r.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["wkv6"] += 1
+    return o, state
+
+
+def pairwise_sqdist(xq, xm):
+    """Squared Euclidean distances by the expansion ``||q||^2 + ||m||^2 -
+    2 q.m``, clamped at 0: xq (Q, F), xm (M, F) float32 -> (Q, M)
+    float32.  The card takes contiguous inputs of any Q, M and F >= 1; the
+    reference's padding of Q, M and F to its tiles has no counterpart (the
+    kernel masks its ragged tiles).
+    """
+    if xq.dim() != 2 or xm.dim() != 2 or xq.shape[1] != xm.shape[1]:
+        raise ValueError(f"xq {tuple(xq.shape)}, xm {tuple(xm.shape)}: want "
+                         f"(Q, F) and (M, F)")
+    f32 = torch.float32
+    if not _on_card("pairwise_sqdist", {"xq": xq, "xm": xm},
+                    {"xq": f32, "xm": f32}):
+        return ref.pairwise_sqdist_ref(xq, xm)
+    (Q, F), M = xq.shape, xm.shape[0]
+    d2 = torch.empty((Q, M), dtype=f32, device=xq.device)
+    if d2.numel() == 0 or F == 0:
+        return d2.zero_()
+    with torch.cuda.device(xq.device):
+        _check("pairwise_sqdist", _kernel("pairwise_sqdist")(
+            xq.data_ptr(), xm.data_ptr(), d2.data_ptr(), Q, M, F,
+            torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["pairwise_sqdist"] += 1
+    return d2

@@ -244,3 +244,86 @@ def flash_decode_ref(q, k_cache, v_cache, valid_mask, *,
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = _product("bkgs,bskd->bkgd", w, v_cache)
     return out.reshape(B, 1, H, hd)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t from h_{-1} = 0: a, b (B, S, R) -> h
+    (B, S, R) in a's type.  A sequential float32 loop, one multiply and one
+    add per step, each rounded: the recurrence the reference's Pallas
+    kernel runs (``rglru_scan.py`` ``_rglru_kernel``).  (The reference's
+    own oracle, ``ref.rglru_scan_ref``, and its model take an associative
+    scan, which sums in another order.)"""
+    af, bf = a.float(), b.float()
+    out = torch.empty_like(af)
+    h = torch.zeros_like(af[:, 0])
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)
+
+
+def wkv6_chunked_ref(r, k, v, logw, u, chunk: int,
+                     initial_state: torch.Tensor | None = None):
+    """The RWKV-6 wkv recurrence in the model's chunked form (the
+    reference's ``models/rwkv6.py`` ``wkv6_chunked`` with
+    ``return_state=True``): r, k, v (B, S, H, hd), logw (B, S, H, hd)
+    float32, u (H, hd), the state (B, H, hd, hd) float32 it starts from
+    (0 if None) -> (o (B, S, H, hd) float32, final state).  S must be a
+    multiple of ``chunk``.
+
+    Within a chunk of L steps, with A_t = exp(cum_{s<=t} logw_s) on the key
+    dimension, the intra-chunk part is two dense products in log-decay
+    space (``exp(-cum)`` clipped at e^75, where the matching
+    ``exp(cum_{t-1})`` underflows to 0) plus the bonus diagonal; the state
+    is carried from chunk to chunk."""
+    B, S, H, hd = r.shape
+    L = chunk
+    n = S // L
+    rf, kf, vf = (t.float().reshape(B, n, L, H, hd) for t in (r, k, v))
+    lw = logw.float().reshape(B, n, L, H, hd)
+    uf = u.float()
+    cum = torch.cumsum(lw, dim=2)                 # A_t = exp(cum_t)
+    total = cum[:, :, -1:]                        # (B, n, 1, H, hd)
+    a_prev = torch.exp(cum - lw)                  # A_{t-1}
+    k_scaled = kf * torch.exp(total - cum)        # A_L / A_t applied
+    k_rel = kf * torch.exp(torch.clamp(-cum, max=75.0))
+    q_dec = rf * a_prev
+    att = torch.einsum("bnthk,bnshk->bnhts", q_dec, k_rel)
+    idx = torch.arange(L, device=r.device)
+    att = torch.where((idx[None, :] < idx[:, None]), att,
+                      torch.zeros((), device=r.device))
+    diag = torch.einsum("bnthk,hk,bnthk->bnth", rf, uf, kf)
+    o = torch.einsum("bnhts,bnshk->bnthk", att, vf) + diag[..., None] * vf
+    state = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device)
+             if initial_state is None else initial_state.float())
+    inter = []
+    for c in range(n):
+        inter.append(torch.einsum("bthk,bhkv->bthv", q_dec[:, c], state))
+        decay = torch.exp(total[:, c])[:, 0]      # (B, H, hd)
+        state = decay[..., None] * state + torch.einsum(
+            "bshk,bshv->bhkv", k_scaled[:, c], vf[:, c])
+    o = o + torch.stack(inter, dim=1)
+    return o.reshape(B, S, H, hd), state
+
+
+def wkv6_ref(r, k, v, logw, u, initial_state: torch.Tensor | None = None):
+    """The RWKV-6 wkv recurrence step by step (the reference's sequential
+    oracle ``ref.wkv6_ref``, in the model's (B, S, H, hd) layout, with an
+    initial state and the final state returned): per step
+    ``o_t = r_t (S + u k_t v_t^T)`` and ``S = diag(exp(logw_t)) S +
+    k_t v_t^T``, in float32.  Returns (o (B, S, H, hd), final state
+    (B, H, hd, hd))."""
+    B, S, H, hd = r.shape
+    rf, kf, vf, lwf = (t.float() for t in (r, k, v, logw))
+    uf = u.float()
+    state = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device)
+             if initial_state is None else initial_state.float())
+    outs = []
+    for t in range(S):
+        kv = torch.einsum("bhk,bhv->bhkv", kf[:, t], vf[:, t])
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
+                                 state + uf[None, :, :, None] * kv))
+        state = torch.exp(lwf[:, t])[..., None] * state + kv
+    return torch.stack(outs, dim=1), state

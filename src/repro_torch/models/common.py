@@ -25,6 +25,21 @@ def _param(t: torch.Tensor) -> torch.nn.Parameter:
     return torch.nn.Parameter(t, requires_grad=False)
 
 
+class NamedWeights(torch.nn.Module):
+    """A module holding exactly the weights its class lists in ``NAMES``,
+    each a parameter under the reference's name."""
+
+    NAMES: tuple[str, ...] = ()
+
+    def __init__(self, **weights: torch.Tensor):
+        super().__init__()
+        if set(weights) != set(self.NAMES):
+            raise ValueError(f"{type(self).__name__} weights "
+                             f"{sorted(weights)} != {sorted(self.NAMES)}")
+        for name in self.NAMES:
+            setattr(self, name, _param(weights[name]))
+
+
 # ---------------------------------------------------------------------------
 # Initializers.  All take an explicit generator; values land on its device.
 # ---------------------------------------------------------------------------
@@ -97,8 +112,38 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, each step rounded to the input type: the
+    reference's ``jax.nn.sigmoid`` (``lax.logistic``) bit for bit on bf16
+    inputs, as :func:`silu` (``torch.sigmoid`` rounds once)."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+def _const(v: float, x: torch.Tensor) -> torch.Tensor:
+    """``v`` rounded to ``x``'s type, as JAX rounds a weakly typed Python
+    scalar before it meets an array (PyTorch keeps the scalar in float32)."""
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU, ``x * 0.5 * (1 + tanh(sqrt(2 / pi) *
+    (x + 0.044715 x^3)))``, with every constant and every step rounded to
+    the input type: ``jax.nn.gelu``'s default, operation for operation (a
+    fused gelu rounds once and gives other bf16 values)."""
+    inner = x + _const(0.044715, x) * (x * x * x)
+    t = torch.tanh(_const(math.sqrt(2.0 / math.pi), x) * inner)
+    return x * (_const(0.5, x) * (_const(1.0, x) + t))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as JAX computes it (``jnp.logaddexp(x, 0)``):
+    ``max(x, 0) + log1p(exp(-|x|))``.  (``F.softplus`` returns x itself
+    above its threshold of 20, another function.)"""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": gelu,
     "silu": silu,
     "relu": F.relu,
     "relu2": lambda x: F.relu(x).square(),

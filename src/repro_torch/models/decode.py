@@ -1,10 +1,14 @@
 """Serving traversals: prefill (prompt -> cache) and decode (one token).
 
 The counterpart of the reference package's ``models/decode.py``, for the
-dense family.  The cache is a list with one dict per layer, in layer
-order:
+dense, rglru and rwkv block kinds.  The cache is a list with one dict per
+layer, in layer order:
 
-  k/v  (B, W, K, hd), bf16 (the activations' type)
+  k/v            (B, W, K, hd), bf16 (the activations' type)  [dense]
+  h              (B, R) float32                               [rglru]
+  conv           (B, W-1, R) bf16, the last W-1 conv inputs
+  S              (B, H, hd, hd) float32, the wkv state        [rwkv]
+  shift_t/_c     (B, D) bf16, the time/channel mix's last input
 
 Ring-buffer semantics: position ``p`` writes slot ``p % W``; W = max_len
 for causal layers, the window for local/chunked layers.
@@ -13,8 +17,9 @@ Two differences from the reference, both about memory:
 
 * the decode step writes the new token's k/v into the layer's cache
   buffers **in place** (an index write at slot ``pos % W``; the reference
-  returns updated buffers from ``dynamic_update_slice``), and returns the
-  same list it was given;
+  returns updated buffers from ``dynamic_update_slice``), puts a
+  recurrent layer's new state into the same dict (every element of it
+  changes each step), and returns the same list it was given;
 * the prefill builds the per-layer list directly (the reference scans
   the stacked layers and unstacks their caches afterwards).
 """
@@ -27,6 +32,8 @@ from ..configs.base import LayerKind, ModelConfig
 from ..device import resolve_device
 from . import attention as attn_mod
 from . import mlp as mlp_mod
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
 from .common import matmul
 from .transformer import (
     Block,
@@ -35,6 +42,8 @@ from .transformer import (
     apply_norm,
     attn_spec_for,
     check_ported,
+    rglru_spec_for,
+    rwkv_spec_for,
     stack_plan,
 )
 
@@ -48,16 +57,29 @@ def cache_window(lk: LayerKind, max_len: int) -> int:
 def init_block_cache(config: ModelConfig, lk: LayerKind, batch: int,
                      max_len: int,
                      device: torch.device) -> dict[str, torch.Tensor]:
+    def zeros(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if lk.kind == "rglru":
+        spec = rglru_spec_for(config)
+        return {"h": zeros(batch, spec.d_rnn, dtype=torch.float32),
+                "conv": zeros(batch, spec.conv_width - 1, spec.d_rnn)}
+    if lk.kind == "rwkv":
+        spec = rwkv_spec_for(config)
+        H, hd = spec.n_heads, spec.head_dim
+        return {"S": zeros(batch, H, hd, hd, dtype=torch.float32),
+                "shift_t": zeros(batch, config.d_model),
+                "shift_c": zeros(batch, config.d_model)}
     W = cache_window(lk, max_len)
     shape = (batch, W, config.n_kv_heads, config.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    return {"k": zeros(*shape), "v": zeros(*shape)}
 
 
 def init_cache(config: ModelConfig, batch: int, max_len: int,
                device: torch.device | str = "cuda"
                ) -> list[dict[str, torch.Tensor]]:
-    """Whole-model cache: one ``{"k", "v"}`` dict per layer, zeros on
+    """Whole-model cache: one dict per layer (``{"k", "v"}``, ``{"h",
+    "conv"}`` or ``{"S", "shift_t", "shift_c"}`` by its kind), zeros on
     ``device`` (the card unless the caller names another)."""
     check_ported(config)
     dev = resolve_device(device)
@@ -101,10 +123,26 @@ def _ring_mask(pos: int, W: int, attn_kind: str,
 
 def block_prefill(params: Block, x, config: ModelConfig, lk: LayerKind,
                   positions, max_len: int):
-    """One dense block forward that also fills its cache.
+    """One block forward that also fills its cache.
 
-    Returns (x, cache) with cache ``{"k", "v"}`` (B, W, K, hd).
+    Returns (x, cache) with cache as :func:`init_block_cache` lays it out.
     """
+    if lk.kind == "rglru":
+        h = apply_norm(params.ln1, x, config)
+        out, cache = rglru_mod.rglru_block_prefill(params.rec, h,
+                                                   rglru_spec_for(config))
+        x = x + out
+        h = apply_norm(params.ln2, x, config)
+        return x + mlp_mod.mlp_fwd(params.ffn, h, config.activation), cache
+    if lk.kind == "rwkv":
+        h = apply_norm(params.ln1, x, config)
+        out, tstate = rwkv_mod.rwkv_time_prefill(params.time, h,
+                                                 rwkv_spec_for(config))
+        x = x + out
+        h = apply_norm(params.ln2, x, config)
+        out, cstate = rwkv_mod.rwkv_channel_prefill(params.chan, h)
+        return x + out, {"S": tstate["S"], "shift_t": tstate["shift"],
+                         "shift_c": cstate["shift"]}
     spec = attn_spec_for(config, lk)
     W = cache_window(lk, max_len)
     B = x.shape[0]
@@ -121,8 +159,30 @@ def block_prefill(params: Block, x, config: ModelConfig, lk: LayerKind,
 
 def block_decode(params: Block, x, config: ModelConfig, lk: LayerKind,
                  cache: dict[str, torch.Tensor], pos: int):
-    """One dense block decode step.  x (B,1,D), pos int.  Writes the new
-    token's k/v into ``cache`` in place; returns x."""
+    """One block decode step.  x (B,1,D), pos int.  Writes the new token's
+    k/v into ``cache`` in place, or puts the new recurrent state into it;
+    returns x."""
+    if lk.kind == "rglru":
+        h = apply_norm(params.ln1, x, config)
+        out, state = rglru_mod.rglru_block_step(params.rec, h[:, 0], cache)
+        cache.update(state)
+        x = x + out[:, None, :]
+        h = apply_norm(params.ln2, x, config)
+        return x + mlp_mod.mlp_fwd(params.ffn, h, config.activation)
+    if lk.kind == "rwkv":
+        h = apply_norm(params.ln1, x, config)
+        out, tstate = rwkv_mod.rwkv_time_step(
+            params.time, h[:, 0], {"S": cache["S"],
+                                   "shift": cache["shift_t"]},
+            rwkv_spec_for(config))
+        x = x + out[:, None, :]
+        h = apply_norm(params.ln2, x, config)
+        out, cstate = rwkv_mod.rwkv_channel_step(
+            params.chan, h[:, 0], {"shift": cache["shift_c"]})
+        cache.update(S=tstate["S"],
+                     shift_t=tstate["shift"].to(torch.bfloat16),
+                     shift_c=cstate["shift"].to(torch.bfloat16))
+        return x + out[:, None, :]
     spec = attn_spec_for(config, lk)
     B = x.shape[0]
     W = cache["k"].shape[1]
@@ -169,7 +229,7 @@ def model_prefill(params: Model, batch: dict, config: ModelConfig,
     """Prompt (B,S) -> (last-token logits (B,V), cache, aux).
 
     ``max_len`` sizes the causal-layer cache (the serving budget); ``aux``
-    (the MoE load-balance loss in the reference) is 0 for dense blocks.
+    (the MoE load-balance loss in the reference) is 0 for these blocks.
     """
     check_ported(config)
     tokens = batch["tokens"]

@@ -1,13 +1,15 @@
-"""Model assembler for the dense family.
+"""Model assembler for the dense, hybrid (RG-LRU) and RWKV families.
 
 The counterpart of the reference package's ``models/transformer.py``.  The
 reference compresses the layer stack into a ``lax.scan`` over stacked
 super-blocks; here the layers are an ``nn.ModuleList`` in layer order, each
-an ``nn.Module`` holding its weights in the reference's layout.  Only the
-``dense`` block kind (attention + MLP, pre-norm residual) is ported; the
-other kinds (``moe``, ``rglru``, ``rwkv``, ``enc``, ``encdec``) and the
-``encdec`` and ``vlm`` families raise ``NotImplementedError`` (ROADMAP
-queue A, item 8).
+an ``nn.Module`` holding its weights in the reference's layout.  The
+``dense`` (attention + MLP), ``rglru`` (Griffin recurrent block + MLP) and
+``rwkv`` (time mix + channel mix) block kinds are ported, all pre-norm
+residual blocks; the port serves all three and trains the dense one (the
+recurrent kernels have no backward yet).  The other kinds (``moe``,
+``enc``, ``encdec``), the ``encdec`` and ``vlm`` families, and training a
+recurrent block raise ``NotImplementedError`` (ROADMAP queue A, item 8).
 
 ``model_fwd`` is the training forward (the serve traversals are in
 :mod:`.decode`).  The reference scans its stacked layers with
@@ -30,6 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import LayerKind, ModelConfig
 from . import attention as attn_mod
 from . import mlp as mlp_mod
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
 from .common import (
     _param,
     fanin_init,
@@ -41,23 +45,32 @@ from .common import (
     zeros_init,
 )
 
-_PORTED_KINDS = ("dense",)
+#: The parts of each ported block kind besides its two norms, by the
+#: reference's parameter names.
+BLOCK_PARTS = {"dense": ("attn", "ffn"), "rglru": ("rec", "ffn"),
+               "rwkv": ("time", "chan")}
+#: The kinds the training path runs (the others' kernels have no backward).
+_TRAINED_KINDS = ("dense",)
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md, queue A "
-        f"item 8); the port runs the dense family")
+        f"item 8); the port serves the dense, rglru and rwkv block kinds "
+        f"and trains the dense one")
 
 
-def check_ported(config: ModelConfig) -> None:
+def check_ported(config: ModelConfig, training: bool = False) -> None:
     """Raise NotImplementedError unless every layer of ``config`` is a
-    block kind of a family this port runs."""
+    block kind this port serves (with ``training``: trains)."""
     if config.family in ("encdec", "vlm"):
         raise _not_ported(f"the {config.family!r} family ({config.name})")
     for lk in config.layers:
-        if lk.kind not in _PORTED_KINDS:
+        if lk.kind not in BLOCK_PARTS:
             raise _not_ported(f"block kind {lk.kind!r} ({config.name})")
+        if training and lk.kind not in _TRAINED_KINDS:
+            raise _not_ported(f"training block kind {lk.kind!r} "
+                              f"({config.name})")
     if config.positional != "rope":
         raise _not_ported(f"{config.positional!r} positions ({config.name})")
 
@@ -82,6 +95,18 @@ def attn_spec_for(config: ModelConfig, lk: LayerKind) -> attn_mod.AttnSpec:
         qk_norm=config.qk_norm,
         logit_softcap=config.logit_softcap,
     )
+
+
+def rglru_spec_for(config: ModelConfig) -> rglru_mod.RGLRUSpec:
+    return rglru_mod.RGLRUSpec(d_model=config.d_model,
+                               d_rnn=config.rnn_width,
+                               conv_width=config.conv_width)
+
+
+def rwkv_spec_for(config: ModelConfig) -> rwkv_mod.RWKV6Spec:
+    return rwkv_mod.RWKV6Spec(d_model=config.d_model,
+                              head_dim=config.rwkv_head_dim,
+                              d_ff=config.d_ff, chunk=config.rwkv_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -117,25 +142,38 @@ def apply_norm(p: Norm, x, config: ModelConfig):
 
 
 class Block(torch.nn.Module):
-    """One pre-norm residual block of a dense model: ln1, attn, ln2, ffn."""
+    """One pre-norm residual block: ln1, ln2 and the parts of its kind
+    (:data:`BLOCK_PARTS`): attn and ffn (dense), rec and ffn (rglru), time
+    and chan (rwkv)."""
 
     def __init__(self, kind: LayerKind, ln1: Norm, ln2: Norm,
-                 attn: attn_mod.Attention, ffn: mlp_mod.MLP):
+                 **parts: torch.nn.Module):
         super().__init__()
-        if kind.kind not in _PORTED_KINDS:
+        if kind.kind not in BLOCK_PARTS:
             raise _not_ported(f"block kind {kind.kind!r}")
+        if set(parts) != set(BLOCK_PARTS[kind.kind]):
+            raise ValueError(f"a {kind.kind!r} block has parts "
+                             f"{BLOCK_PARTS[kind.kind]}, got {sorted(parts)}")
         self.kind = kind
-        self.ln1, self.ln2, self.attn, self.ffn = ln1, ln2, attn, ffn
+        self.ln1, self.ln2 = ln1, ln2
+        for name in BLOCK_PARTS[kind.kind]:
+            setattr(self, name, parts[name])
 
 
 def init_block(gen: torch.Generator, config: ModelConfig,
                lk: LayerKind) -> Block:
     dev = gen.device
-    return Block(
-        lk, init_norm(config, dev), init_norm(config, dev),
-        attn_mod.init_attention(gen, attn_spec_for(config, lk)),
-        mlp_mod.init_mlp(gen, config.d_model, config.d_ff,
-                         gated=config.gated_mlp))
+    norms = (lk, init_norm(config, dev), init_norm(config, dev))
+    if lk.kind == "rwkv":
+        spec = rwkv_spec_for(config)
+        return Block(*norms, time=rwkv_mod.init_rwkv_time(gen, spec),
+                     chan=rwkv_mod.init_rwkv_channel(gen, spec))
+    mixer = ({"rec": rglru_mod.init_rglru(gen, rglru_spec_for(config))}
+             if lk.kind == "rglru" else
+             {"attn": attn_mod.init_attention(gen, attn_spec_for(config,
+                                                                  lk))})
+    return Block(*norms, **mixer, ffn=mlp_mod.init_mlp(
+        gen, config.d_model, config.d_ff, gated=config.gated_mlp))
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +208,7 @@ def stack_plan(config: ModelConfig, n_layers: int | None = None) -> StackPlan:
 
 
 class Model(torch.nn.Module):
-    """A dense decoder-only model: embed (V, D), layers, final_norm,
+    """A decoder-only model: embed (V, D), layers, final_norm,
     lm_head (D, V) (untied, as the reference builds every arch)."""
 
     def __init__(self, config: ModelConfig, embed: torch.Tensor,
@@ -287,8 +325,9 @@ def stack_fwd(layers, x, config: ModelConfig, positions):
 
 def model_fwd(params: Model, batch: dict, config: ModelConfig):
     """Training/scoring forward.  batch: {"tokens": (B, S) int64}.  Returns
-    (hidden (B, S, D) after the final norm, aux loss scalar)."""
-    check_ported(config)
+    (hidden (B, S, D) after the final norm, aux loss scalar).  Dense
+    blocks only: the recurrent kinds are served, not trained."""
+    check_ported(config, training=True)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, tokens, config)

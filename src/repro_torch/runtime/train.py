@@ -141,7 +141,7 @@ def build_train_step(
         config = dataclasses.replace(config, remat=options.remat)
     if options.compression not in ("none", "int8"):
         raise ValueError(f"unknown compression {options.compression!r}")
-    check_ported(config)
+    check_ported(config, training=True)
     dev = resolve_device(device)
     accum_name = options.accum_dtype or config.grad_accum_dtype
     accum_dtype = (torch.bfloat16 if accum_name == "bfloat16"

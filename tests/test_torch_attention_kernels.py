@@ -67,6 +67,7 @@ def _jax_ref_attention(q, k, v, **kw):
 @pytest.mark.parametrize("B,H,K,S,hd", [
     (1, 2, 2, 128, 64),     # groups of 1
     (2, 8, 2, 128, 32),     # groups of 4
+    (1, 10, 1, 128, 256),   # recurrentgemma-2b's heads: MQA, hd 256
 ])
 def test_flash_attention_matches_pallas_and_ref(dtype, kind, window, B, H, K,
                                                 S, hd):
@@ -132,6 +133,7 @@ def _decode_arrays(B, K, G, W, hd, dtype, seed):
 @pytest.mark.parametrize("B,K,G,W,hd", [
     (2, 2, 1, 64, 64),      # groups of 1
     (2, 2, 4, 100, 32),     # groups of 4, W no multiple of a tile
+    (2, 1, 10, 80, 256),    # recurrentgemma-2b's heads: G 10, hd 256
 ])
 def test_flash_decode_matches_pallas_and_ref(dtype, B, K, G, W, hd):
     q, kc, vc, valid = _decode_arrays(B, K, G, W, hd, dtype, B * W + G)

@@ -95,7 +95,8 @@ def _attn_tol(dtype):
     ("bidir", 0, 0.0), ("causal", 0, 20.0)])
 @pytest.mark.parametrize("B,Sq,Sk,H,K,hd", [
     (1, 128, 128, 2, 1, 64), (2, 100, 100, 8, 2, 128),
-    (1, 200, 200, 4, 4, 32), (2, 77, 77, 4, 1, 96)])
+    (1, 200, 200, 4, 4, 32), (2, 77, 77, 4, 1, 96),
+    (1, 100, 100, 10, 1, 256)])
 def test_flash_attention_kernel_on_card(cuda, dtype, kind, window, softcap,
                                         B, Sq, Sk, H, K, hd):
     g = _gen(B * Sq + H * hd, cuda)
@@ -156,7 +157,9 @@ def _decode_inputs(B, K, G, W, hd, dtype, dev, seed, p_valid=0.7):
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 @pytest.mark.parametrize("B,K,G,W,hd", [
     (1, 1, 1, 37, 32), (16, 8, 4, 529, 128), (3, 2, 8, 100, 64),
-    (2, 2, 4, 1000, 64), (2, 2, 2, 50, 96), (2, 1, 8, 2048, 128)])
+    (2, 2, 4, 1000, 64), (2, 2, 2, 50, 96), (2, 1, 8, 2048, 128),
+    (16, 1, 10, 529, 256), (2, 2, 16, 300, 256), (2, 1, 13, 100, 128),
+    (1, 1, 3, 64, 200)])
 def test_flash_decode_kernel_on_card(cuda, dtype, softcap, B, K, G, W, hd):
     q, kc, vc, valid = _decode_inputs(B, K, G, W, hd, dtype, cuda,
                                       B * W + G)
@@ -194,11 +197,10 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
                          vc, valid)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         ops.flash_decode(q, kc.cpu(), vc, valid)
-    for K, G, hd in ((2, 16, 64), (2, 4, 256)):      # no kernel instance
-        q2, kc2, vc2, valid2 = _decode_inputs(1, K, G, 16, hd,
-                                              torch.bfloat16, cuda, 3)
-        with pytest.raises(ValueError, match="does not take"):
-            ops.flash_decode(q2, kc2, vc2, valid2)
+    q2, kc2, vc2, valid2 = _decode_inputs(1, 1, 2, 16, 512, torch.bfloat16,
+                                          cuda, 3)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        ops.flash_decode(q2, kc2, vc2, valid2)
     x = torch.zeros((1, 8, 2, 64), device=cuda)
     every_other = torch.zeros((1, 8, 2, 128), device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
@@ -207,8 +209,8 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
         ops.flash_attention(x, x.cpu(), x)
     with pytest.raises(TypeError, match="float32 or torch.bfloat16"):
         ops.flash_attention(x.double(), x.double(), x.double())
-    with pytest.raises(ValueError, match="hd <= 128"):
-        y = torch.zeros((1, 8, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        y = torch.zeros((1, 8, 2, 512), device=cuda)
         ops.flash_attention(y, y, y)
 
 
@@ -357,3 +359,120 @@ def test_flash_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="unit stride"):
         ops.flash_attention_bwd(q, k, v, torch.zeros(
             (1, 16, 2, 128), device=cuda)[..., ::2], stats)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_path_e_prefill_shape(cuda):
+    """recurrentgemma-2b's prefill: (B 16, S 512, H 10, hd 256), MQA, the
+    window of 2,048, bf16."""
+    g = _gen(17, cuda)
+    q = torch.randn((16, 512, 10, 256), generator=g, device=cuda).bfloat16()
+    k = torch.randn((16, 512, 1, 256), generator=g, device=cuda).bfloat16()
+    v = torch.randn((16, 512, 1, 256), generator=g, device=cuda).bfloat16()
+    got = ops.flash_attention(q, k, v, kind="window", window=2048)
+    want = ref.flash_attention_ref(q, k, v, kind="window", window=2048)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tol(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,R", [(16, 512, 2560), (3, 37, 100),
+                                   (1, 1000, 2567), (2, 1, 33)])
+def test_rglru_scan_kernel_on_card(cuda, B, S, R):
+    """Bit-equal to the plain version (one rounded multiply and one
+    rounded add per step on both sides)."""
+    g = _gen(B + S + R, cuda)
+    a = torch.exp(-0.5 * torch.randn((B, S, R), generator=g,
+                                     device=cuda).abs())
+    b = 0.5 * torch.randn((B, S, R), generator=g, device=cuda)
+    n0 = ops.LAUNCHES["rglru_scan"]
+    got = ops.rglru_scan(a, b)
+    want = ref.rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rglru_scan"] == n0 + 1
+    assert torch.equal(got, want)
+
+
+WKV_TOL = dict(atol=5e-4, rtol=1e-3)          # tests/test_kernels.py:185-201
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("B,S,H,hd,chunk", [
+    (16, 512, 64, 64, 32), (2, 96, 4, 32, 8), (2, 128, 2, 128, 64),
+    (1, 7, 3, 64, 7)])
+def test_wkv6_kernel_on_card(cuda, dtype, init, B, S, H, hd, chunk):
+    """Output and final state against the model's chunked form and the
+    sequential oracle."""
+    g = _gen(B * S + hd, cuda)
+    r, k, v = (0.5 * torch.randn((B, S, H, hd), generator=g, device=cuda))\
+        .to(dtype), (0.5 * torch.randn((B, S, H, hd), generator=g,
+                                       device=cuda)).to(dtype), \
+        (0.5 * torch.randn((B, S, H, hd), generator=g,
+                           device=cuda)).to(dtype)
+    logw = -torch.exp(0.5 * torch.randn((B, S, H, hd), generator=g,
+                                        device=cuda) - 2.0)
+    u = 0.3 * torch.randn((H, hd), generator=g, device=cuda)
+    s0 = 0.3 * torch.randn((B, H, hd, hd), generator=g, device=cuda) \
+        if init else None
+    n0 = ops.LAUNCHES["wkv6"]
+    got = ops.wkv6(r, k, v, logw, u, chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["wkv6"] == n0 + 1
+    for want in (ref.wkv6_chunked_ref(r, k, v, logw, u, chunk,
+                                      initial_state=s0),
+                 ref.wkv6_ref(r, k, v, logw, u, initial_state=s0)):
+        torch.testing.assert_close(got[0], want[0], **WKV_TOL)
+        torch.testing.assert_close(got[1], want[1], **WKV_TOL)
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_strided_inputs(cuda):
+    """r, k, v, logw as views of (B, H, S, hd) buffers: read through their
+    strides."""
+    g = _gen(8, cuda)
+    r, k, v, w = (torch.randn((2, 4, 64, 64), generator=g, device=cuda)
+                  .transpose(1, 2) for _ in range(4))
+    logw = -torch.exp(0.5 * w - 2.0)
+    u = 0.3 * torch.randn((4, 64), generator=g, device=cuda)
+    assert not r.is_contiguous()
+    got = ops.wkv6(0.5 * r, 0.5 * k, 0.5 * v, logw, u, 32)
+    want = ref.wkv6_ref(0.5 * r, 0.5 * k, 0.5 * v, logw, u)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **WKV_TOL)
+    torch.testing.assert_close(got[1], want[1], **WKV_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,M,F", [(5, 3, 7), (300, 17, 130), (513, 256, 6),
+                                   (8192, 1024, 16), (64, 3000, 40)])
+def test_pairwise_sqdist_kernel_on_card(cuda, Q, M, F):
+    g = _gen(Q + M + F, cuda)
+    xq = torch.randn((Q, F), generator=g, device=cuda)
+    xm = torch.randn((M, F), generator=g, device=cuda)
+    n0 = ops.LAUNCHES["pairwise_sqdist"]
+    got = ops.pairwise_sqdist(xq, xm)
+    want = ref.pairwise_sqdist_ref(xq, xm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pairwise_sqdist"] == n0 + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
+    a = torch.rand((2, 8, 16), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ops.rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), a)
+    x = torch.zeros((1, 8, 2, 48), device=cuda)
+    u = torch.zeros((2, 48), device=cuda)
+    with pytest.raises(ValueError, match="hd 32, 64 or 128"):
+        ops.wkv6(x, x, x, x, u, 8)
+    x = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(TypeError, match="types differ"):
+        ops.wkv6(x.bfloat16(), x, x, x, torch.zeros((2, 32), device=cuda), 8)
+    with pytest.raises(TypeError, match="float32"):
+        ops.pairwise_sqdist(x[0, :, 0].double(), x[0, :, 0].double())

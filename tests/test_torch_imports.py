@@ -51,7 +51,7 @@ def test_every_port_module_imports_without_jax_or_reference():
                 "runtime.loss", "runtime.train", "runtime.fault_tolerance",
                 "optim.optimizer", "optim.compression",
                 "checkpoint.checkpointer", "launch.train",
-                "launch.train_anneal"):
+                "launch.train_anneal", "models.rglru", "models.rwkv6"):
         assert f"repro_torch.{mod}" in names
     assert leaked == "[]"
 

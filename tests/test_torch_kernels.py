@@ -239,3 +239,142 @@ def test_every_kernel_has_plain_version_cpu_test_and_card_test(name):
             if gpu]
     assert cpu, f"no CPU test calls ops.{name}"
     assert card, f"no card test calls ops.{name}"
+
+
+@pytest.mark.parametrize("B,S,R", [(2, 512, 256), (1, 256, 128),
+                                   (3, 128, 384)])
+def test_rglru_scan_matches_pallas_and_ref(B, S, R):
+    """The port's sequential scan (the recurrence the Pallas kernel runs)
+    against the Pallas kernel in interpret mode and the reference's
+    associative-scan oracle, at tests/test_kernels.py:148-157's shapes and
+    tolerance (atol 1e-5, rtol 1e-4)."""
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(S + R)
+    a = np.exp(-np.abs(0.5 * rng.standard_normal((B, S, R)))) \
+        .astype(np.float32)
+    b = (0.5 * rng.standard_normal((B, S, R))).astype(np.float32)
+    h = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
+    assert h.dtype == torch.float32 and tuple(h.shape) == (B, S, R)
+    for want in (jops.rglru_scan(jnp.asarray(a), jnp.asarray(b)),
+                 jref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b))):
+        np.testing.assert_allclose(h.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-4)
+
+
+def test_rglru_scan_is_two_roundings_per_step():
+    """The plain version rounds the product and the sum of each step on
+    their own (as the card kernel, built without contraction)."""
+    a = torch.tensor([[[0.1], [3.0], [0.7]]])
+    b = torch.tensor([[[1e-8], [1.0 / 3.0], [0.2]]])
+    h0 = a[0, 0, 0] * 0 + b[0, 0, 0]
+    h1 = a[0, 1, 0] * h0 + b[0, 1, 0]
+    h2 = a[0, 2, 0] * h1 + b[0, 2, 0]
+    assert ops.rglru_scan(a, b).flatten().tolist() == \
+        [h0.item(), h1.item(), h2.item()]
+    with pytest.raises(ValueError, match="two"):
+        ops.rglru_scan(a, b[:, :2])
+
+
+def _wkv_inputs(B, H, S, hd, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v = ((0.5 * rng.standard_normal((B, S, H, hd))).astype(np.float32)
+               for _ in range(3))
+    logw = -np.exp(0.5 * rng.standard_normal((B, S, H, hd)) - 2.0) \
+        .astype(np.float32)
+    u = (0.3 * rng.standard_normal((H, hd))).astype(np.float32)
+    s0 = (0.3 * rng.standard_normal((B, H, hd, hd))).astype(np.float32)
+    return r, k, v, logw, u, s0
+
+
+WKV_TOL = dict(atol=5e-4, rtol=1e-3)          # tests/test_kernels.py:185-201
+
+
+@pytest.mark.parametrize("B,H,S,hd,chunk", [
+    (2, 2, 128, 64, 64), (1, 4, 256, 64, 32), (2, 1, 64, 128, 64)])
+def test_wkv6_matches_pallas_model_and_sequential_ref(B, H, S, hd, chunk):
+    """``ops.wkv6`` (the model's chunked form on the CPU) and the port's
+    sequential oracle against the Pallas kernel (interpret mode), the
+    reference's sequential oracle and its model's ``wkv6_chunked`` (final
+    state too), at tests/test_kernels.py:185-201's shapes and tolerance."""
+    from repro.kernels import ops as jops
+    from repro.models.rwkv6 import wkv6_chunked
+
+    r, k, v, logw, u, _ = _wkv_inputs(B, H, S, hd, S + hd)
+    t = [torch.from_numpy(x) for x in (r, k, v, logw, u)]
+    j = [jnp.asarray(x) for x in (r, k, v, logw, u)]
+    o, state = ops.wkv6(*t, chunk)
+    o_seq, state_seq = pref.wkv6_ref(*t)
+    jo, jstate = wkv6_chunked(*j, chunk, return_state=True)
+    want_o = [jops.wkv6(*j, chunk=chunk), jo, jref.wkv6_ref(
+        *(x.transpose(0, 2, 1, 3) for x in j[:4]), j[4]).transpose(0, 2, 1,
+                                                                 3)]
+    for got in (o, o_seq):
+        assert got.dtype == torch.float32
+        for want in want_o:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       **WKV_TOL)
+    for got in (state, state_seq):
+        np.testing.assert_allclose(got.numpy(), np.asarray(jstate),
+                                   **WKV_TOL)
+
+
+def test_wkv6_carries_an_initial_state_and_takes_bf16():
+    """From a given state, as the model's ``wkv6_chunked(initial_state=)``;
+    running two halves, the second from the first's final state, is the
+    whole; bf16 r/k/v are read as they are (float32 math)."""
+    import ml_dtypes
+
+    from repro.models.rwkv6 import wkv6_chunked
+
+    r, k, v, logw, u, s0 = _wkv_inputs(2, 3, 64, 32, 5)
+    t = [torch.from_numpy(x) for x in (r, k, v, logw, u)]
+    o, state = ops.wkv6(*t, 16, initial_state=torch.from_numpy(s0))
+    jo, jstate = wkv6_chunked(*map(jnp.asarray, (r, k, v, logw, u)), 16,
+                              initial_state=jnp.asarray(s0),
+                              return_state=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **WKV_TOL)
+    np.testing.assert_allclose(state.numpy(), np.asarray(jstate), **WKV_TOL)
+    o1, s1 = ops.wkv6(*(x[:, :32] for x in t[:4]), t[4], 16,
+                      initial_state=torch.from_numpy(s0))
+    o2, s2 = ops.wkv6(*(x[:, 32:] for x in t[:4]), t[4], 16,
+                      initial_state=s1)
+    np.testing.assert_allclose(torch.cat([o1, o2], 1).numpy(), o.numpy(),
+                               **WKV_TOL)
+    np.testing.assert_allclose(s2.numpy(), state.numpy(), **WKV_TOL)
+    bf = [torch.from_numpy(x.astype(ml_dtypes.bfloat16).view(np.uint16))
+          .view(torch.bfloat16) for x in (r, k, v)]
+    ob, _ = ops.wkv6(*bf, t[3], t[4], 16)
+    want, _ = pref.wkv6_ref(*(x.float() for x in bf), t[3], t[4])
+    np.testing.assert_allclose(ob.numpy(), want.numpy(), **WKV_TOL)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.wkv6(*(x[:, :40] for x in t[:4]), t[4], 16)
+    with pytest.raises(ValueError, match="initial_state"):
+        ops.wkv6(*t, 16, initial_state=torch.zeros((2, 3, 32, 31)))
+
+
+@pytest.mark.parametrize("Q,M,F", [(5, 3, 7), (300, 17, 130), (513, 256, 6)])
+def test_pairwise_sqdist_matches_pallas_and_ref(Q, M, F):
+    """tests/test_surrogate.py:54-66's shapes and tolerance (atol / rtol
+    1e-4), against the Pallas kernel (interpret mode) and the jnp oracle."""
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(Q + M + F)
+    xq = rng.normal(size=(Q, F)).astype(np.float32)
+    xm = rng.normal(size=(M, F)).astype(np.float32)
+    got = ops.pairwise_sqdist(torch.from_numpy(xq), torch.from_numpy(xm))
+    assert tuple(got.shape) == (Q, M)
+    for want in (jops.pairwise_sqdist(jnp.asarray(xq), jnp.asarray(xm)),
+                 jref.pairwise_sqdist_ref(jnp.asarray(xq), jnp.asarray(xm))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_pairwise_sqdist_zero_diagonal_and_refusals():
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(40, 9))
+                         .astype(np.float32))
+    d2 = ops.pairwise_sqdist(x, x)
+    np.testing.assert_allclose(np.diag(d2.numpy()), 0.0, atol=1e-5)
+    assert (d2 >= 0).all()
+    with pytest.raises(ValueError, match=r"\(Q, F\) and \(M, F\)"):
+        ops.pairwise_sqdist(x, x[:, :8])

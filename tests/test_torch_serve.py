@@ -186,8 +186,7 @@ def test_tp_padded_tree_is_refused():
                               get_config(ARCH), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b",
-                                  "rwkv6-7b", "whisper-base",
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-base",
                                   "phi-3-vision-4.2b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
