@@ -22,7 +22,9 @@ What it does, in order; any failure exits non-zero:
    softcap, ragged lengths, float32, up to 16 query heads per kv head;
    rows of up to 32,768 for ``quantize_int8`` and ragged scans for
    ``rglru_scan``, both bit-equal; initial states and strided inputs for
-   ``wkv6``), with the JAX tests' tolerances;
+   ``wkv6``), with the JAX tests' tolerances; and the bf16 attention
+   kernels' score sums (tensor cores plus the exact-sum fallback) against
+   cuBLAS's float32 product, score by score;
 4. path A: the container-sizing controller on the 8-tier e-commerce DAG's
    coarse menu (65,536 states), 12 rounds with a day -> evening drift of
    the request mix; whole-grid tables go through ``sizing_latency``;
@@ -60,12 +62,14 @@ What it does, in order; any failure exits non-zero:
    at full width (1 x 4096 tokens) on the card alone;
 9. times each kernel and its plain version with CUDA events at the path
    shapes (the attention kernels also at PREFILL_32K and DECODE_32K with
-   the batch cut and at path E's hd-256 shapes, the backward also at
-   qwen3-8b's training head layout), beside the least time the card could
-   take (its bound) and the library's time on the same inputs where one
-   PyTorch call computes the function: ``scaled_dot_product_attention``
-   forward or backward for attention, ``torch.cdist`` squared for
-   ``pairwise_sqdist`` (timed only; the port never calls them);
+   the batch cut and at path E's hd-256 shapes, the forward also at path
+   D's training microbatch, the backward also at qwen3-8b's training head
+   layout), beside the least time the card could take (its bound, and
+   the share of the kernel's time it is) and the library's time on the
+   same inputs where one PyTorch call computes the function:
+   ``scaled_dot_product_attention`` forward or backward for attention,
+   ``torch.cdist`` squared for ``pairwise_sqdist`` (timed only; the port
+   never calls them);
 10. prints one JSON line of kernel records, then the card line, then the
    result line ``{"ok": true, "device": {...}}`` last.
 
@@ -84,6 +88,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -224,7 +229,8 @@ def profile_rounds(torch, ctrl, n: int, label: str,
     """Trace ``n`` more rounds of ``ctrl`` with torch.profiler and print
     the device's busy time per round (its kernels and copies), its idle
     share against ``untraced_ms`` (the round's wall time without the
-    profiler), device operations per round, and the top device-time ops."""
+    profiler), device operations per round, the top device-time ops and
+    the port's own kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -248,9 +254,13 @@ def profile_rounds(torch, ctrl, n: int, label: str,
           f" {sum(r[1] for r in rows) / n:.0f} device ops/round; idle share "
           f"{1 - busy_ms / untraced_ms:.4f} of the untraced round "
           f"({untraced_ms:.2f} ms; {traced_ms:.2f} ms traced)")
-    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
-        print(f"    {dev_us / 1e3 / n:8.4f} ms/round {count / n:6.1f}x  "
-              f"{key[:72]}")
+    ranked = sorted(rows, reverse=True)
+    # the six largest, then the port's own kernels wherever they rank
+    for rank, (dev_us, count, key) in enumerate(ranked):
+        if rank < 6 or key.split("(anonymous namespace)::")[0] in (
+                "", "void "):
+            print(f"    {dev_us / 1e3 / n:8.4f} ms/round {count / n:6.1f}x  "
+                  f"{key[:72]}")
 
 
 def compare(torch, name, outputs, got, want, tol) -> float:
@@ -411,6 +421,42 @@ def check_attention_kernels(torch, ops, ref, dev) -> dict[str, float]:
                                   softcap=softcap).float(),), tol(dt)))
     torch.cuda.synchronize()
     return {name: max(e) for name, e in errs.items()}
+
+
+def check_exact_sums(torch, ops, dev) -> None:
+    """The bf16 attention kernels' score sums (``ops.attention_score_sums``,
+    the forward's tensor-core sums and exact-sum fallback for one head)
+    against a plain float32 product, on 4,096 x 4,096 random scores at hd
+    64 and 128: the sequential sums equal cuBLAS's bit for bit, the
+    tensor-core sums lie within the fallback's tolerance (16 x 2^-24 |q|
+    |k|) of them, and after the fallback every score rounds to bf16 as
+    cuBLAS's does.  Prints how many tensor-core sums alone round
+    otherwise, how many the fallback takes again, and the largest
+    |t - seq| in units of 2^-24 sum_d |q_d k_d|."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    S = 4096
+    for hd in (64, 128):
+        q = torch.randn((S, hd), generator=gen, device=dev).bfloat16()
+        k = torch.randn((S, hd), generator=gen, device=dev).bfloat16()
+        t, fixed, seq = ops.attention_score_sums(q, k)
+        plain = q.float() @ k.float().T
+        qn, kn = q.float().norm(dim=1), k.float().norm(dim=1)
+        tol = 16.0 * 2.0 ** -24 * qn[:, None] * kn[None, :]
+        units = (t - seq).abs() / (2.0 ** -24 * (q.float().abs()
+                                                 @ k.float().abs().T))
+        raw = int((t.bfloat16() != plain.bfloat16()).sum())
+        retaken = int((fixed != t).sum())
+        left = int((fixed.bfloat16() != plain.bfloat16()).sum())
+        check(torch.equal(seq, plain) and left == 0
+              and bool(((t - seq).abs() <= tol).all()),
+              f"exact sums, hd {hd}, {S * S:,} scores: sequential sums equal "
+              f"cuBLAS's; tensor-core sums round otherwise at {raw} "
+              f"({raw / S / S:.2e}), {retaken} ({retaken / S / S:.2e}) taken "
+              f"again, {left} left; max |t - seq| "
+              f"{float(units.max()):.2f} x 2^-24 sum|q k| (tolerance 16 x "
+              f"2^-24 |q| |k|)")
+        del q, k, t, fixed, seq, plain, tol, units
+    torch.cuda.empty_cache()
 
 
 def serve_path(torch, ops, config, label: str, rounds: int
@@ -608,8 +654,9 @@ def time_attention(torch, ops, ref, dev) -> list[dict]:
     """Kernel, plain version and PyTorch's SDPA (``library_ms``) on the
     same inputs, with their bounds: the serve paths' shapes (qwen3-8b's,
     path C, and recurrentgemma-2b's at hd 256, path E, whose window of
-    2,048 covers its 512-token prompt, so SDPA runs it causal), and
-    PREFILL_32K / DECODE_32K with the batch cut to 1 and 32."""
+    2,048 covers its 512-token prompt, so SDPA runs it causal),
+    PREFILL_32K / DECODE_32K with the batch cut to 1 and 32, and the
+    forward at path D's training microbatch (repro-100m's heads)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -622,7 +669,9 @@ def time_attention(torch, ops, ref, dev) -> list[dict]:
             ("serve prefill", 16, SERVE_PROMPT, 32, 8, 128, "causal", 0, 20),
             ("PREFILL_32K, batch 1", 1, 32768, 32, 8, 128, "causal", 0, 2),
             ("path E prefill", 16, SERVE_PROMPT, 10, 1, 256, "window", 2048,
-             20)):
+             20),
+            ("path D microbatch", TRAIN_BATCH // TRAIN_MICROBATCHES,
+             TRAIN_SEQ, 12, 12, 64, "causal", 0, 50)):
         q, k, v = rnd((B, S, H, hd)), rnd((B, S, K, hd)), rnd((B, S, K, hd))
         kw = dict(kind=kind, window=window)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
@@ -734,7 +783,8 @@ def print_row(r: dict) -> None:
     print(f"{r['name']} {r['label']} ({r['shape']}): kernel {r['ms']:.4f} "
           f"ms, plain {r['plain_ms']:.4f} ms, library {lib}, bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['nbytes'] / 1e6:.1f} "
-          f"MB, {r['nops'] / 1e9:.2f} GFLOP)")
+          f"MB, {r['nops'] / 1e9:.2f} GFLOP; {r['bound_ms'] / r['ms']:.4f} "
+          f"of the kernel's time)")
 
 
 def bf16_ulp(torch, x):
@@ -1262,7 +1312,11 @@ def main(argv: list[str]) -> int:
     for name, (secs, log) in sorted(build.build_log.items()):
         print(f"  {name}: nvcc {secs:.2f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                # the instance, e.g. flash_attention_bf16_kernelILi128...
+                mangled = line.split("'")[1].split("_cu_")[-1]
+                print("    " + re.sub(r"^[0-9a-f]{8}\d+", "", mangled)[:60])
+            elif "registers" in line or "spill" in line:
                 print("    " + line.strip())
 
     from repro_torch.core import sizing as sz
@@ -1346,6 +1400,7 @@ def main(argv: list[str]) -> int:
     records["fused_interp"] = {"max_abs_err": max(errs)}
     for name, err in check_attention_kernels(torch, ops, ref, dev).items():
         records[name] = {"max_abs_err": err}
+    check_exact_sums(torch, ops, dev)
     for name, err in check_training_kernels(torch, ops, ref, dev).items():
         records[name] = {"max_abs_err": err}
     for name, err in check_recurrent_kernels(torch, ops, ref, dev, xq_b,

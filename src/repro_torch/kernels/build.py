@@ -2,9 +2,10 @@
 
 Each source in ``csrc/`` has a plain C interface and builds on its own
 into a shared library under ``build/kernels/`` at the repository root
-(``REPRO_TORCH_BUILD_DIR`` overrides), named by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is.  Nothing is built when the package is imported: the first call
+(``REPRO_TORCH_BUILD_DIR`` overrides), named by a hash of the source,
+every local header it includes (``#include "..."``, followed through
+headers) and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  Nothing is built when the package is imported: the first call
 that needs a kernel builds it, and :func:`build_all` builds every source
 at once, one ``nvcc`` per source, all started together.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -65,12 +67,32 @@ def nvcc() -> str:
                        "are built from source on first use")
 
 
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """The source of kernel ``name`` and every header beside it that it
+    includes, directly or through another header, in the order found."""
+    found: list[Path] = []
+    todo = [_CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_text()):
+            header = path.parent / inc
+            if header.is_file():
+                todo.append(header)
+    return found
+
+
 def _target(name: str) -> tuple[Path, list[str]]:
-    src = _CSRC / f"{name}.cu"
     flags = list(_COMMON) + list(SOURCES[name])
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    return build_dir() / f"{name}-{digest}.so", flags
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so", flags
 
 
 def build_all(names: tuple[str, ...] | None = None) -> dict[str, Path]:

@@ -241,7 +241,12 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     chunk (both with ``window``), bidir or cross; ``softcap`` > 0 caps
     scores with tanh.
     Any Sq and Sk; the card reads the inputs through their strides (unit
-    stride in the head dim) and takes hd <= 256.
+    stride in the head dim) and takes hd <= 256.  In bf16 the card's
+    products run on the tensor cores, and each score's float32 sum rounds
+    to bf16 as the plain version's sequential float32 sum does (sums near
+    a rounding midpoint are taken again in order; see
+    ``csrc/flash_attention.cu``), so the row statistics match the plain
+    ones to float32 rounding.
 
     With a softcap the two paths treat refused keys differently.  The
     plain version (the model's math) adds the -2e30 mask before the tanh,
@@ -301,7 +306,9 @@ def flash_attention_bwd(q, k, v, dout, stats=None, *, kind: str = "causal",
     ignores it.  The card reads q, k, v and dout through their strides
     (unit stride in the head dim) and takes hd <= 128; dk and dv are
     summed over the query heads of each kv head without atomics, so the
-    result does not change from run to run.  With a softcap the kernel,
+    result does not change from run to run.  In bf16 it recomputes the
+    forward's scores bit for bit (the same tensor-core sums, rounded as
+    the forward rounds them), so its weights sum to 1 per row.  With a softcap the kernel,
     as its forward, gives refused keys no weight (see
     :func:`flash_attention`).
     """
@@ -382,6 +389,40 @@ def flash_attention_trainable(q, k, v, kind: str = "causal", window: int = 0,
     and the backward kernel for the gradient; on the CPU both run their
     plain versions."""
     return _FlashAttention.apply(q, k, v, kind, int(window), float(softcap))
+
+
+def attention_score_sums(q, k):
+    """Not on any path: how the bf16 attention kernels sum q . k.  q, k
+    (S, hd) bf16, hd 64 or 128 -> (t, fixed, seq), each (S, S) float32:
+    the tensor-core sums, the same after the exact-sum fallback (the
+    flagged ones replaced by the bf16 rounding of their sequential sums;
+    what the kernels round to bf16), and every sum taken in order (fmaf
+    from d = 0), as a plain float32 product takes it.  On the CPU all
+    three are the plain float32 product.  For tests and
+    ``chip_smoke.py``."""
+    if q.dim() != 2 or tuple(q.shape) != tuple(k.shape):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: want "
+                         f"two (S, hd)")
+    S, hd = q.shape
+    if not _on_card("attention_score_sums", {"q": q, "k": k},
+                    {"q": torch.bfloat16, "k": torch.bfloat16}):
+        prod = q.float() @ k.float().T
+        return prod, prod.clone(), prod.clone()
+    if hd not in (64, 128):
+        raise ValueError(f"attention_score_sums takes hd 64 or 128, got {hd}")
+    fn = _fns.get("attention_score_sums")
+    if fn is None:
+        fn = build.library("flash_attention").flash_attention_score_sums
+        fn.argtypes = [_P] * 5 + [_I, _I, _P]
+        fn.restype = ctypes.c_int
+        _fns["attention_score_sums"] = fn
+    out = tuple(torch.empty((S, S), dtype=torch.float32, device=q.device)
+                for _ in range(3))
+    with torch.cuda.device(q.device):
+        _check("attention_score_sums", fn(
+            q.data_ptr(), k.data_ptr(), *(t.data_ptr() for t in out), S, hd,
+            torch.cuda.current_stream().cuda_stream))
+    return out
 
 
 def quantize_int8(x):

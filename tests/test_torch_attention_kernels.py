@@ -199,6 +199,24 @@ def test_attention_wrappers_refuse_bad_shapes_and_devices():
     assert ops.LAUNCHES == before          # the plain version is no launch
 
 
+@pytest.mark.parametrize("S,hd", [(1, 64), (37, 64), (130, 128)])
+def test_attention_score_sums_on_the_cpu_are_the_plain_product(S, hd):
+    """On the CPU the score-sum diagnostic gives the plain float32 product
+    three times (tensor-core, fixed and sequential sums are the card's);
+    it launches no kernel and refuses mismatched shapes."""
+    rng = np.random.default_rng(S + hd)
+    q = torch.as_tensor(rng.standard_normal((S, hd)), dtype=torch.bfloat16)
+    k = torch.as_tensor(rng.standard_normal((S, hd)), dtype=torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    sums = ops.attention_score_sums(q, k)
+    want = q.float() @ k.float().T
+    assert ops.LAUNCHES == before
+    for got in sums:
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    with pytest.raises(ValueError, match="two"):
+        ops.attention_score_sums(q, k[:, :32])
+
+
 def _jax_attention_vjp(q, k, v, dout, kind, window, softcap=0.0):
     """(dq, dk, dv) of the reference's ``flash_attention_trainable`` (the
     Pallas forward in interpret mode, ``_fat_bwd`` backward: the vjp of

@@ -476,3 +476,198 @@ def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
         ops.wkv6(x.bfloat16(), x, x, x, torch.zeros((2, 32), device=cuda), 8)
     with pytest.raises(TypeError, match="float32"):
         ops.pairwise_sqdist(x[0, :, 0].double(), x[0, :, 0].double())
+
+
+# ---- the bf16 tensor-core instances of the attention kernels -------------
+#
+# mma.sync tiles are 16 query rows a warp, 64 rows a block, and 64 keys a
+# tile (32 at hd 256); the lengths below sit on either side of those edges,
+# and the head dims cover the three instances (64, 128, 256), a head dim
+# below one mma step (8) and two that are not multiples of 16 (72, 200).
+
+_EDGE_LENGTHS = [1, 15, 17, 63, 65, 129]
+
+
+def _check_stats(stats, q, k, **kw):
+    """The forward's row statistics against the plain ones: the row max
+    within the bf16 tolerance and the sum of exponentials within rtol
+    1e-5, which holds only if every score rounds to bf16 as the plain
+    version's float32 sum does."""
+    m, l = stats
+    mr, lr = ref.flash_attention_stats_ref(q, k, **kw)
+    torch.testing.assert_close(m, mr, **_attn_tol(torch.bfloat16))
+    torch.testing.assert_close(l, lr, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [8, 64, 72, 128, 200, 256])
+@pytest.mark.parametrize("S", _EDGE_LENGTHS)
+def test_flash_attention_bf16_tile_edges(cuda, S, hd):
+    g = _gen(S * 1000 + hd, cuda)
+    q = torch.randn((2, S, 4, hd), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, S, 2, hd), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, S, 2, hd), generator=g, device=cuda).bfloat16()
+    n0 = ops.LAUNCHES["flash_attention"]
+    got, stats = ops.flash_attention(q, k, v, return_stats=True)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tol(torch.bfloat16))
+    _check_stats(stats, q, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [8, 64, 72, 128, 200, 256])
+def test_flash_attention_bf16_cross(cuda, hd):
+    """Sq 77 queries against Sk 300 keys: ragged on both sides."""
+    g = _gen(77 + hd, cuda)
+    q = torch.randn((2, 77, 4, hd), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, 300, 2, hd), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, 300, 2, hd), generator=g, device=cuda).bfloat16()
+    got, stats = ops.flash_attention(q, k, v, kind="cross",
+                                     return_stats=True)
+    want = ref.flash_attention_ref(q, k, v, kind="cross")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tol(torch.bfloat16))
+    _check_stats(stats, q, k, kind="cross")
+
+
+def _check_bwd_bf16(q32, k32, v32, dout32, **kw):
+    """The bf16 backward against the plain version: every gradient element
+    within the plain bf16 result's gap to the plain float32 one, or one
+    bf16 step; the forward's statistics as _check_stats."""
+    q, k, v, dout = (t.bfloat16() for t in (q32, k32, v32, dout32))
+    _, stats = ops.flash_attention(q, k, v, return_stats=True, **kw)
+    n0 = ops.LAUNCHES["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, dout, stats, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, **kw)
+    want32 = ref.flash_attention_bwd_ref(q32, k32, v32, dout32, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == n0 + 1
+    _check_stats(stats, q, k, **kw)
+    for gk, gp, g32 in zip(got, want, want32):
+        assert gk.dtype == torch.bfloat16
+        assert _within_bf16_gap(gk, gp, g32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [8, 64, 72, 128])
+@pytest.mark.parametrize("S", _EDGE_LENGTHS)
+def test_flash_attention_bwd_bf16_tile_edges(cuda, S, hd):
+    _check_bwd_bf16(*_bwd_inputs(2, S, 4, 2, hd, cuda, 7 * S + hd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,window", [
+    ("window", 40), ("window", 64), ("window", 100), ("chunk", 48),
+    ("chunk", 64), ("chunk", 96)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bf16_window_and_chunk_edges(cuda, kind, window,
+                                                     hd):
+    """Windows and chunks whose edges cut 64-key tiles and 16-row warps:
+    forward and backward."""
+    q, k, v, dout = _bwd_inputs(2, 200, 4, 2, hd, cuda, window + hd)
+    kw = dict(kind=kind, window=window)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    got = ops.flash_attention(qb, kb, vb, **kw)
+    want = ref.flash_attention_ref(qb, kb, vb, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tol(torch.bfloat16))
+    _check_bwd_bf16(q, k, v, dout, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [10, 16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bf16_many_query_heads(cuda, G, hd):
+    """10 and 16 query heads per kv head: the dk/dv pass walks them all."""
+    q, k, v, dout = _bwd_inputs(1, 150, 2 * G, 2, hd, cuda, G + hd)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    got = ops.flash_attention(qb, kb, vb)
+    want = ref.flash_attention_ref(qb, kb, vb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tol(torch.bfloat16))
+    _check_bwd_bf16(q, k, v, dout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bf16_unaligned_rows(cuda, hd):
+    """Views whose rows do not start on a 16-byte boundary (one element
+    into a buffer with rows of hd + 1): the kernels load them element by
+    element, forward and backward, with the same results as contiguous
+    copies."""
+    g = _gen(hd, cuda)
+
+    def view(H):
+        buf = torch.randn((2, 100, H, hd + 1), generator=g, device=cuda)
+        return buf.bfloat16()[..., 1:]
+
+    q, k, v, dout = view(4), view(2), view(2), view(4)
+    assert q.data_ptr() % 16 != 0 and q.stride(2) % 8 != 0
+    got, stats = ops.flash_attention(q, k, v, return_stats=True)
+    grads = ops.flash_attention_bwd(q, k, v, dout, stats)
+    qc, kc, vc, dc = (t.contiguous() for t in (q, k, v, dout))
+    got_c, stats_c = ops.flash_attention(qc, kc, vc, return_stats=True)
+    grads_c = ops.flash_attention_bwd(qc, kc, vc, dc, stats_c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_c)
+    assert all(torch.equal(x, y) for x, y in zip(stats, stats_c))
+    assert all(torch.equal(x, y) for x, y in zip(grads, grads_c))
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(q, k, v).float(),
+                               **_attn_tol(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,window", [("causal", 0), ("window", 100),
+                                         ("bidir", 0)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bwd_bf16_weights_sum_to_one(cuda, kind, window,
+                                                     hd):
+    """The backward recomputes each row's weights y from the forward's m
+    and l.  With every v_j equal, dw_ij = dO_i . v is the same for every
+    key, so ds_ij = y_ij dw_i (1 - sum_j y_ij): dq and dk vanish exactly
+    when the recomputed weights of each row sum to 1, that is when the
+    backward's scores are the forward's bit for bit.  One score rounding
+    to another bf16 value than in the forward moves its row's sum by
+    about 1e-4, and dq with it."""
+    g = _gen(3 * hd + window, cuda)
+    q = torch.randn((2, 300, 4, hd), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, 300, 2, hd), generator=g, device=cuda).bfloat16()
+    v = torch.randn((1, 1, 1, hd), generator=g, device=cuda).bfloat16() \
+        .expand(2, 300, 2, hd).contiguous()
+    dout = torch.randn((2, 300, 4, hd), generator=g, device=cuda).bfloat16()
+    kw = dict(kind=kind, window=window)
+    _, stats = ops.flash_attention(q, k, v, return_stats=True, **kw)
+    dq, dk, dv = ops.flash_attention_bwd(q, k, v, dout, stats, **kw)
+    torch.cuda.synchronize()
+    assert float(dv.float().abs().max()) > 0.1
+    assert float(dq.float().abs().max()) < 1e-5
+    assert float(dk.float().abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_attention_score_sums_round_as_the_plain_product(cuda, hd):
+    """What makes the bf16 kernels' scores the plain version's: a plain
+    float32 product (cuBLAS, TF32 off) sums q . k in order, one fmaf a
+    step; the tensor cores' sums lie within the fallback's tolerance,
+    16 x 2^-24 |q| |k|, of that sequential sum; and after the fallback
+    every score rounds to bf16 as the plain product's does."""
+    g = _gen(hd, cuda)
+    S = 1024
+    q = torch.randn((S, hd), generator=g, device=cuda).bfloat16()
+    k = torch.randn((S, hd), generator=g, device=cuda).bfloat16()
+    t, fixed, seq = ops.attention_score_sums(q, k)
+    plain = q.float() @ k.float().T
+    torch.cuda.synchronize()
+    assert torch.equal(seq, plain)
+    assert torch.equal(fixed.bfloat16(), plain.bfloat16())
+    tol = 16.0 * 2.0 ** -24 * (q.float().norm(dim=1)[:, None]
+                              * k.float().norm(dim=1)[None, :])
+    assert bool(((t - seq).abs() <= tol).all())
