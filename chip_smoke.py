@@ -65,13 +65,15 @@ What it does, in order; any failure exits non-zero:
    the batch cut and at path E's hd-256 shapes, the forward also at path
    D's training microbatch, the backward also at qwen3-8b's training head
    layout), beside the least time the card could take (its bound, and
-   the share of the kernel's time it is) and the library's time on the
+   the share of the kernel's time it is), the kernel's achieved bytes/s,
+   ``flash_decode``'s split count, and the library's time on the
    same inputs where one PyTorch call computes the function:
    ``scaled_dot_product_attention`` forward or backward for attention,
    ``torch.cdist`` squared for ``pairwise_sqdist`` (timed only; the port
    never calls them);
-10. prints one JSON line of kernel records, then the card line, then the
-   result line ``{"ok": true, "device": {...}}`` last.
+10. prints one JSON line of kernel records (each with every timed shape
+   under ``shapes``), then the card line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 With ``--profile`` it also traces a few more rounds of paths A and B with
 ``torch.profiler`` (after step 5), one burst of paths C's, E's and F's
@@ -703,10 +705,12 @@ def time_attention(torch, ops, ref, dev) -> list[dict]:
         nbytes = 2 * (2 * B * n_valid * K * hd + 2 * q.numel()) + B * W_
         nops = 4 * B * H * n_valid * hd
         mask = valid[:, None, None, :]
+        n_split, split_len = ops.decode_split(B, W_, K, H // K, hd, 2)
         rows.append(dict(
             name="flash_decode", label=label,
             shape=f"B {B}, W {W_} ({n_valid} valid), H {H}, K {K}, hd {hd}, "
-                  f"bf16",
+                  f"bf16; {n_split} splits of {split_len} slots, "
+                  f"{B * K * n_split} blocks",
             ms=time_cold_ms(torch, lambda: ops.flash_decode(q, kc, vc, valid),
                             iters),
             plain_ms=time_cold_ms(torch, lambda: ref.flash_decode_ref(
@@ -779,12 +783,24 @@ def time_recurrent(torch, ops, ref, dev, xq_b, xm_b) -> list[dict]:
 
 
 def print_row(r: dict) -> None:
+    """One timed row, with the kernel's achieved bytes/s (the bound's bytes
+    over its time) and the bound's share of its time."""
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
     print(f"{r['name']} {r['label']} ({r['shape']}): kernel {r['ms']:.4f} "
           f"ms, plain {r['plain_ms']:.4f} ms, library {lib}, bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}; {r['nbytes'] / 1e6:.1f} "
           f"MB, {r['nops'] / 1e9:.2f} GFLOP; {r['bound_ms'] / r['ms']:.4f} "
-          f"of the kernel's time)")
+          f"of the kernel's time; achieved "
+          f"{r['nbytes'] / r['ms'] / 1e9:.3f} TB/s)")
+
+
+def record_rows(rows: list[dict], name: str) -> list[dict]:
+    """Every timed shape of one kernel, for its entry in the kernel line."""
+    return [{"label": r["label"], "shape": r["shape"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "tb_per_s": r["nbytes"] / r["ms"] / 1e9}
+            for r in rows if r["name"] == name]
 
 
 def bf16_ulp(torch, x):
@@ -1567,6 +1583,8 @@ def main(argv: list[str]) -> int:
                    if r["name"] == name)
         records[name].update({k: row[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        records[name]["shapes"] = record_rows(
+            attn_rows + train_rows + rec_rows, name)
     print(f"path A mean round {sum(round_s_a[1:]) / (n_a - 1):.4f} s "
           f"(rounds 1-{n_a - 1}), path B round 0 (table build) "
           f"{round_s_b[0]:.3f} s, later rounds "
@@ -1620,7 +1638,8 @@ def main(argv: list[str]) -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
-            "library_ms": rec.get("library_ms")})
+            "library_ms": rec.get("library_ms"),
+            "shapes": rec.get("shapes", [])})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

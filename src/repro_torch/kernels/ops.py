@@ -48,7 +48,7 @@ _SIGNATURES = {
     "quantize_int8": ("quantize_int8_launch",
                       [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_P]),
     "flash_decode": ("flash_decode_launch",
-                     [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+                     [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
     "rglru_scan": ("rglru_scan_launch", [_P] * 3 + [_I] * 3 + [_P]),
     "wkv6": ("wkv6_launch", [_P] * 9 + [_I] * 5 + [_P]),
     "pairwise_sqdist": ("pairwise_sqdist_launch",
@@ -457,13 +457,48 @@ def quantize_int8(x):
     return q, scale
 
 
+#: Blocks of flash_decode's kernel that fill the H100's 132 SMs about
+#: twice, and the most dynamic shared memory one block takes (so three fit
+#: on an SM).
+DECODE_MIN_BLOCKS = 264
+_DECODE_SMEM = 74 * 1024
+
+
+def decode_split(B: int, W: int, K: int, G: int, hd: int,
+                 itemsize: int) -> tuple[int, int]:
+    """How :func:`flash_decode`'s kernel cuts a cache of W slots:
+    ``(n_split, split_len)``, n_split contiguous splits of split_len slots
+    (a multiple of 32, at most 128; the last split shorter but not empty).
+    B * K * n_split reaches :data:`DECODE_MIN_BLOCKS` where W holds 32
+    slots for each split that takes, and each split's rows fit the block's
+    shared memory beside its weights and sums (G query heads a kv head,
+    head dim hd padded to 64, 128 or 256, ``itemsize`` bytes an
+    element)."""
+    HD = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    gc = 1                  # heads a lane holds; the kernel's own rule
+    while gc < G and gc < 1024 // HD:
+        gc *= 2
+    gp = -(-G // gc) * gc
+    fixed = 4 * (4 * gc * HD + 3 * gp)
+    cap = min(128, (_DECODE_SMEM - fixed) // (HD * itemsize + 4 * gp)
+              // 32 * 32)
+    if cap < 32:
+        raise ValueError(f"flash_decode kernel: G {G} at hd {hd} leaves no "
+                         f"room for a split in shared memory")
+    need = -(-DECODE_MIN_BLOCKS // (B * K))
+    rows = max(32, min(cap, W // need // 32 * 32))
+    return -(-W // rows), rows
+
+
 def flash_decode(q, k_cache, v_cache, valid_mask, *, softcap: float = 0.0):
     """One query token per sequence against a masked KV cache, in the
     model layout: q (B, 1, H, hd), caches (B, W, K, hd), valid (B, W) bool
     -> (B, 1, H, hd) in q's type (float32 or bfloat16; float32 math,
     rounded to q's type where the model rounds).  A sequence with no
     valid slot gets 0 on the card.  The card reads the caches in place; it
-    takes hd <= 256 and any number of query heads per kv head.
+    takes hd <= 256 and any number of query heads per kv head.  Its kernel
+    cuts the cache into :func:`decode_split` splits and runs two launches
+    on the current stream, with scratch allocated here.
     """
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q {tuple(q.shape)}: want (B, 1, H, hd)")
@@ -495,12 +530,24 @@ def flash_decode(q, k_cache, v_cache, valid_mask, *, softcap: float = 0.0):
         return o
     if W == 0:
         raise ValueError("flash_decode needs a cache of at least one slot")
+    n_split, split_len = decode_split(B, W, K, H // K, hd, q.element_size())
+    # scratch: scores (B, H, W) and partial sums (B, H, n_split, hd)
+    # float32, (max, sum) pairs (B, H, n_split), tickets (B, K) int32
+    offsets, total = [], 0
+    for nbytes in (4 * B * H * W, 4 * B * H * n_split * hd,
+                   8 * B * H * n_split, 4 * B * K):
+        offsets.append(total)
+        total += -(-nbytes // 256) * 256
+    ws = torch.empty(total, dtype=torch.uint8, device=q.device)
+    scores, partial, stats, tickets = (ws.data_ptr() + off
+                                       for off in offsets)
     vec_ok = all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache, o))
     with torch.cuda.device(q.device):
         _check("flash_decode", _kernel("flash_decode")(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            valid_mask.data_ptr(), o.data_ptr(), B, W, K, H, hd,
-            int(q.dtype == torch.bfloat16), float(softcap), int(vec_ok),
+            valid_mask.data_ptr(), o.data_ptr(), scores, stats, partial,
+            tickets, B, W, K, H, hd, int(q.dtype == torch.bfloat16),
+            n_split, split_len, float(softcap), int(vec_ok),
             torch.cuda.current_stream().cuda_stream))
     LAUNCHES["flash_decode"] += 1
     return o
@@ -576,6 +623,9 @@ def wkv6(r, k, v, logw, u, chunk: int = 64, initial_state=None):
                         f"{v.dtype})")
     if hd not in (32, 64, 128):
         raise ValueError(f"wkv6 kernel takes hd 32, 64 or 128, got {hd}")
+    if initial_state is not None and initial_state.data_ptr() % 16:
+        raise ValueError("wkv6: initial_state must be 16-byte aligned on "
+                         "the card")
     o = torch.empty((B, S, H, hd), dtype=f32, device=r.device)
     state = torch.empty((B, H, hd, hd), dtype=f32, device=r.device)
     strides = _strides(r, k, v, logw)

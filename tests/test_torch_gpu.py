@@ -184,6 +184,84 @@ def test_flash_decode_kernel_empty_row_is_zero(cuda):
                                **_attn_tol(torch.bfloat16))
 
 
+def _split_edge(B, K, G, hd, itemsize):
+    """The largest W up to 600 whose last split holds one slot."""
+    for W in range(600, 1, -1):
+        n, L = ops.decode_split(B, W, K, G, hd, itemsize)
+        if n >= 2 and W == (n - 1) * L + 1:
+            return W
+    raise AssertionError("no W up to 600 ends a split with one slot")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,K,G,hd", [(16, 8, 4, 128), (16, 1, 10, 256),
+                                      (2, 2, 4, 64)])
+def test_flash_decode_kernel_split_edges(cuda, dtype, B, K, G, hd):
+    """W one slot past a split boundary (the last split holds one slot),
+    and W = 1."""
+    W = _split_edge(B, K, G, hd, torch.empty((), dtype=dtype).element_size())
+    for W_ in (W, 1):
+        q, kc, vc, valid = _decode_inputs(B, K, G, W_, hd, dtype, cuda, W_)
+        got = ops.flash_decode(q, kc, vc, valid)
+        want = ref.flash_decode_ref(q, kc, vc, valid)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_attn_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_kernel_empty_split_and_empty_row(cuda, dtype):
+    """A whole split with no valid slot inside a row that has some (it
+    adds m = -inf, l = 0 to the combine) and a row with no valid slot
+    (0), among rows of many splits."""
+    B, K, G, W, hd = 3, 2, 4, 1000, 128
+    n_split, split_len = ops.decode_split(B, W, K, G, hd,
+                                          torch.empty((), dtype=dtype)
+                                          .element_size())
+    assert n_split >= 3
+    q, kc, vc, valid = _decode_inputs(B, K, G, W, hd, dtype, cuda, 5)
+    valid[0, split_len:2 * split_len] = False
+    valid[1, :split_len] = False
+    valid[2] = False
+    got = ops.flash_decode(q, kc, vc, valid)
+    want = ref.flash_decode_ref(q[:2], kc[:2], vc[:2], valid[:2])
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[2]) == 0
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got[:2].float(), want.float(),
+                               **_attn_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_kernel_long_cache(cuda, dtype):
+    """W 32,768 with a random mask: 256 splits of 128 slots a row in bf16,
+    342 of 96 in float32."""
+    q, kc, vc, valid = _decode_inputs(2, 2, 4, 32768, 128, dtype, cuda, 7,
+                                      p_valid=0.5)
+    got = ops.flash_decode(q, kc, vc, valid)
+    want = ref.flash_decode_ref(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,G,W,hd", [(16, 8, 4, 529, 128),
+                                        (16, 1, 10, 529, 256),
+                                        (2, 2, 4, 32768, 128)])
+def test_flash_decode_kernel_is_deterministic(cuda, B, K, G, W, hd):
+    """Every sum runs in a fixed order (the last block of a kv head adds
+    the splits' partials in split order): two calls, the same bits."""
+    q, kc, vc, valid = _decode_inputs(B, K, G, W, hd, torch.bfloat16, cuda,
+                                      11)
+    a = ops.flash_decode(q, kc, vc, valid)
+    b = ops.flash_decode(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 @pytest.mark.gpu
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
     q, kc, vc, valid = _decode_inputs(2, 2, 2, 16, 64, torch.bfloat16, cuda,
@@ -426,6 +504,60 @@ def test_wkv6_kernel_on_card(cuda, dtype, init, B, S, H, hd, chunk):
                  ref.wkv6_ref(r, k, v, logw, u, initial_state=s0)):
         torch.testing.assert_close(got[0], want[0], **WKV_TOL)
         torch.testing.assert_close(got[1], want[1], **WKV_TOL)
+
+
+def _wkv6_long_inputs(hd, decay, init, dev):
+    """S 4,096 from seeded normals: slow decay (logw about -0.0025 a step,
+    the state keeps some 400 steps) or fast (about -1)."""
+    g = _gen(hd + (decay == "fast"), dev)
+    B, S, H = 1, 4096, 2
+    r, k, v = (0.5 * torch.randn((B, S, H, hd), generator=g, device=dev)
+               for _ in range(3))
+    z = torch.randn((B, S, H, hd), generator=g, device=dev)
+    logw = -torch.exp(0.5 * z - (6.0 if decay == "slow" else 0.0))
+    u = 0.3 * torch.randn((H, hd), generator=g, device=dev)
+    s0 = 0.3 * torch.randn((B, H, hd, hd), generator=g, device=dev) \
+        if init else None
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", ["slow", "fast"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_wkv6_kernel_long_sequence(cuda, hd, decay):
+    """S 4,096 from an initial state against both plain versions (chunk 16
+    keeps the chunked form's exp(-cum) under its e^75 clip at fast
+    decay)."""
+    r, k, v, logw, u, s0 = _wkv6_long_inputs(hd, decay, True, cuda)
+    got = ops.wkv6(r, k, v, logw, u, 16, initial_state=s0)
+    torch.cuda.synchronize()
+    for want in (ref.wkv6_chunked_ref(r, k, v, logw, u, 16,
+                                      initial_state=s0),
+                 ref.wkv6_ref(r, k, v, logw, u, initial_state=s0)):
+        torch.testing.assert_close(got[0], want[0], **WKV_TOL)
+        torch.testing.assert_close(got[1], want[1], **WKV_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_wkv6_kernel_is_deterministic(cuda, hd):
+    r, k, v, logw, u, s0 = _wkv6_long_inputs(hd, "slow", True, cuda)
+    a = ops.wkv6(r.bfloat16(), k.bfloat16(), v.bfloat16(), logw, u, 16,
+                 initial_state=s0)
+    b = ops.wkv6(r.bfloat16(), k.bfloat16(), v.bfloat16(), logw, u, 16,
+                 initial_state=s0)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_wkv6_kernel_refuses_a_misaligned_state(cuda):
+    """The kernel reads the state by 16-byte loads."""
+    x = torch.zeros((1, 8, 2, 32), device=cuda)
+    u = torch.zeros((2, 32), device=cuda)
+    s0 = torch.zeros(2 * 32 * 32 + 1, device=cuda)[1:].view(1, 2, 32, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.wkv6(x, x, x, x, u, 8, initial_state=s0)
 
 
 @pytest.mark.gpu
