@@ -64,10 +64,11 @@ What it does, in order; any failure exits non-zero:
    shapes (the attention kernels also at PREFILL_32K and DECODE_32K with
    the batch cut and at path E's hd-256 shapes, the forward also at path
    D's training microbatch, the backward also at qwen3-8b's training head
-   layout), beside the least time the card could take (its bound, and
-   the share of the kernel's time it is), the kernel's achieved bytes/s,
-   ``flash_decode``'s split count, and the library's time on the
-   same inputs where one PyTorch call computes the function:
+   layout; every kernel but ``quantize_int8`` with a cold L2,
+   ``time_cold_ms``), beside the least time the card could take (its
+   bound, and the share of the kernel's time it is), the kernel's
+   achieved bytes/s, ``flash_decode``'s split count, and the library's
+   time on the same inputs where one PyTorch call computes the function:
    ``scaled_dot_product_attention`` forward or backward for attention,
    ``torch.cdist`` squared for ``pairwise_sqdist`` (timed only; the port
    never calls them);
@@ -76,9 +77,11 @@ What it does, in order; any failure exits non-zero:
    ``{"ok": true, "device": {...}}`` last.
 
 With ``--profile`` it also traces a few more rounds of paths A and B with
-``torch.profiler`` (after step 5), one burst of paths C's, E's and F's
-workloads at batch 16 (in step 6) and three path-D train steps (in step
-7), and prints the device's busy time and idle share of each.
+``torch.profiler`` (after step 5) and one path-B table build (206
+``fused_interp`` launches; its wall time, device busy time, idle share and
+``fused_interp``'s share of the device time), one burst of paths C's, E's
+and F's workloads at batch 16 (in step 6) and three path-D train steps (in
+step 7), and prints the device's busy time and idle share of each.
 
 It exits with code 2 and prints no result when there is no CUDA device,
 or when it stands in a directory without the rest of the repository.
@@ -88,6 +91,7 @@ The DAG and mixes are copied from ``benchmarks/container_sizing.py``
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -226,13 +230,14 @@ def time_ms(torch, fn, iters: int, warm: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def profile_rounds(torch, ctrl, n: int, label: str,
-                   untraced_ms: float) -> None:
+def profile_rounds(torch, ctrl, n: int, label: str, untraced_ms: float,
+                   share_of: str | None = None) -> None:
     """Trace ``n`` more rounds of ``ctrl`` with torch.profiler and print
     the device's busy time per round (its kernels and copies), its idle
     share against ``untraced_ms`` (the round's wall time without the
     profiler), device operations per round, the top device-time ops and
-    the port's own kernels."""
+    the port's own kernels; with ``share_of``, that kernel's share of the
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -256,6 +261,12 @@ def profile_rounds(torch, ctrl, n: int, label: str,
           f" {sum(r[1] for r in rows) / n:.0f} device ops/round; idle share "
           f"{1 - busy_ms / untraced_ms:.4f} of the untraced round "
           f"({untraced_ms:.2f} ms; {traced_ms:.2f} ms traced)")
+    if share_of is not None:
+        mine = [r for r in rows if share_of + "_kernel" in r[2]]
+        own_ms = sum(r[0] for r in mine) / 1e3 / n
+        print(f"profile {label}: {share_of} {own_ms:.3f} ms/round over "
+              f"{sum(r[1] for r in mine) / n:.0f} launches, "
+              f"{own_ms / busy_ms:.4f} of the device time")
     ranked = sorted(rows, reverse=True)
     # the six largest, then the port's own kernels wherever they rank
     for rank, (dev_us, count, key) in enumerate(ranked):
@@ -728,10 +739,10 @@ def time_attention(torch, ops, ref, dev) -> list[dict]:
 
 
 def time_recurrent(torch, ops, ref, dev, xq_b, xm_b) -> list[dict]:
-    """``rglru_scan`` at path E's prefill and ``wkv6`` at path F's (cold
-    L2, as a prefill finds them), and ``pairwise_sqdist`` at path B's grid
-    chunk (warm): kernel, plain version, library (``torch.cdist`` squared
-    for the distances; none for the recurrences) and bound."""
+    """``rglru_scan`` at path E's prefill, ``wkv6`` at path F's and
+    ``pairwise_sqdist`` at path B's grid chunk, each with a cold L2:
+    kernel, plain version, library (``torch.cdist`` squared for the
+    distances; none for the recurrences) and bound."""
     gen = torch.Generator(device=dev).manual_seed(6)
 
     def rnd(shape, scale=1.0):
@@ -769,11 +780,11 @@ def time_recurrent(torch, ops, ref, dev, xq_b, xm_b) -> list[dict]:
     rows.append(dict(
         name="pairwise_sqdist", label="path B grid chunk",
         shape=f"Q {Q}, M {M}, F {F}, float32",
-        ms=time_ms(torch, lambda: ops.pairwise_sqdist(xq_b, xm_b), 200),
-        plain_ms=time_ms(torch, lambda: ref.pairwise_sqdist_ref(xq_b, xm_b),
-                         50),
-        library_ms=time_ms(torch, lambda: torch.cdist(xq_b, xm_b).square_(),
-                           200),
+        ms=time_cold_ms(torch, lambda: ops.pairwise_sqdist(xq_b, xm_b), 100),
+        plain_ms=time_cold_ms(torch, lambda: ref.pairwise_sqdist_ref(
+            xq_b, xm_b), 20),
+        library_ms=time_cold_ms(torch, lambda: torch.cdist(
+            xq_b, xm_b).square_(), 100),
         **bound(4 * (Q * F + M * F + Q * M), Q * M * (2 * F + 4)
                 + (Q + M) * 2 * F, FP32_OPS_PER_S)))
     torch.cuda.empty_cache()
@@ -1277,6 +1288,63 @@ def time_training_kernels(torch, ops, ref, dev) -> list[dict]:
     return rows
 
 
+def profile_table_build(torch, ctrl) -> None:
+    """Trace one path-B table build (the day mix's table dropped from the
+    controller's cache and built again: the probes, then 206
+    ``fused_interp`` chunks) after one untraced build; prints the build's
+    wall time, the device's busy time and idle share, and
+    ``fused_interp``'s share of the device time."""
+    class Build:
+        def round(self):
+            ctrl._tables.clear()
+            ctrl._table_for(MIX_DAY)
+
+    build = Build()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build.round()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"path B table build: {wall_ms:.1f} ms wall (untraced)")
+    profile_rounds(torch, build, 1, "path B table build", wall_ms,
+                   share_of="fused_interp")
+
+
+def path_a_rows(torch, small, dev):
+    """``sizing_latency``'s inputs at path A: the whole coarse grid's rows
+    (196,608 x 8) under the day mix."""
+    rates = torch.tensor(small.dag.rates_array(MIX_DAY), dtype=torch.float32,
+                         device=dev)
+    return small.kernel_inputs(small.grid_candidates(dev), rates)
+
+
+def path_b_chunk(torch, large, dev):
+    """``fused_interp``'s inputs at path B's chunk: 1,024 probes of the
+    rich menu, measured under the day mix, against the first 8,192 grid
+    states, as ``SurrogateModel.predict`` hands them over."""
+    from repro_torch.core import sizing as sz
+    from repro_torch.core.surrogate import (
+        MeasurementStore,
+        SpaceEncoding,
+        SurrogateSource,
+    )
+
+    enc = SpaceEncoding.from_space(large.space)
+    probes = SurrogateSource(n_probe=1024, seed=3)._probe_states(
+        large.space, None)
+    store = MeasurementStore(len(large.space.shape))
+    for s in probes:
+        store.add(s, float(large.host_objective(
+            large.space.decode([int(i) for i in s]), MIX_DAY)["y"]), 0.0)
+    obs, ys, _ = store.arrays()
+    check(len(obs) == 1024, f"path B store holds {len(obs)} probes")
+    xq = torch.as_tensor(enc.features(sz.full_grid(large.space)[:8192]),
+                         device=dev)
+    return (xq, torch.as_tensor(enc.features(obs), device=dev),
+            torch.as_tensor(ys, dtype=torch.float32, device=dev),
+            torch.ones(len(obs), dtype=torch.float32, device=dev))
+
+
 def bound(nbytes: float, nops: float, peak_ops: float) -> dict:
     """The least time for moving ``nbytes`` and doing ``nops`` on the
     card, and which of the two bounds it."""
@@ -1336,11 +1404,7 @@ def main(argv: list[str]) -> int:
                 print("    " + line.strip())
 
     from repro_torch.core import sizing as sz
-    from repro_torch.core.surrogate import (
-        MeasurementStore,
-        SpaceEncoding,
-        SurrogateSource,
-    )
+    from repro_torch.core.surrogate import SurrogateSource
     from repro_torch.workloads import microservice as ms
 
     small, large = make_specs(sz, ms)
@@ -1348,10 +1412,7 @@ def main(argv: list[str]) -> int:
 
     # -- 3. each kernel against its plain version, on the card --------------
     f32 = torch.float32
-    rates_day = torch.tensor(small.dag.rates_array(MIX_DAY), dtype=f32,
-                             device=dev)
-    grid_a = small.grid_candidates(dev)
-    sl_args = small.kernel_inputs(grid_a, rates_day)      # path A's rows
+    sl_args = path_a_rows(torch, small, dev)
     B, K = sl_args[0].shape
     c_max = small.c_max
     errs = [compare(torch, f"sizing_latency path A ({B}x{K}, c_max "
@@ -1377,25 +1438,9 @@ def main(argv: list[str]) -> int:
             SIZING_TOL))
     records["sizing_latency"] = {"max_abs_err": max(errs)}
 
-    # path B's chunk: 1,024 probes of the rich menu against the first
-    # 8,192 grid states, as SurrogateModel.predict hands them over
-    enc_b = SpaceEncoding.from_space(large.space)
-    probes = SurrogateSource(n_probe=1024, seed=3)._probe_states(
-        large.space, None)
-    store = MeasurementStore(len(large.space.shape))
-    for s in probes:
-        store.add(s, float(large.host_objective(
-            large.space.decode([int(i) for i in s]), MIX_DAY)["y"]), 0.0)
-    obs, ys, _ = store.arrays()
-    M = len(obs)
-    check(M == 1024, f"path B store holds {M} probes")
-    xm_b = torch.as_tensor(enc_b.features(obs), device=dev)
-    y_b = torch.as_tensor(ys, dtype=f32, device=dev)
-    w_b = torch.ones(M, dtype=f32, device=dev)
-    grid_b = sz.full_grid(large.space)
-    xq_b = torch.as_tensor(enc_b.features(grid_b[:8192]), device=dev)
-    Q, F = xq_b.shape
-    fi_real = (xq_b, xm_b, y_b, w_b)
+    fi_real = path_b_chunk(torch, large, dev)
+    xq_b, xm_b, y_b, _ = fi_real
+    (Q, F), M = xq_b.shape, xm_b.shape[0]
     errs = []
     for kind in ("idw", "rbf"):
         errs.append(compare(
@@ -1505,6 +1550,7 @@ def main(argv: list[str]) -> int:
                        1e3 * sum(round_s_a[1:]) / (n_a - 1))
         profile_rounds(torch, ctrl_b, 2, "path B (table cached)",
                        1e3 * sum(round_s_b[1:]) / (n_b - 1))
+        profile_table_build(torch, ctrl_b)
 
     # -- 6. paths C, E, F: the annealed serve loop at full size ------------
     from repro_torch.configs import get_config
@@ -1547,10 +1593,10 @@ def main(argv: list[str]) -> int:
     nops = B * (K * (4 * c_max + 12) + K * (edges + 2 * K))
     sl_bound = max(nb / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
     records["sizing_latency"].update(
-        ms=time_ms(torch, lambda: ops.sizing_latency(*sl_args, c_max=c_max),
-                   200),
-        plain_ms=time_ms(torch, lambda: ref.sizing_latency_ref(
-            *sl_args, c_max=c_max), 20),
+        ms=time_cold_ms(torch, lambda: ops.sizing_latency(
+            *sl_args, c_max=c_max), 100),
+        plain_ms=time_cold_ms(torch, lambda: ref.sizing_latency_ref(
+            *sl_args, c_max=c_max), 10),
         bound_ms=sl_bound,
         bound_by="bytes" if nb / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S
         else "operations")
@@ -1561,16 +1607,42 @@ def main(argv: list[str]) -> int:
     nops = Q * M * (2 * F + 10) + (Q + M) * 2 * F
     fi_bound = max(nb / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
     records["fused_interp"].update(
-        ms=time_ms(torch, lambda: ops.fused_interp(*fi_real), 200),
-        plain_ms=time_ms(torch, lambda: ref.fused_interp_ref(*fi_real), 20),
+        ms=time_cold_ms(torch, lambda: ops.fused_interp(*fi_real), 100),
+        plain_ms=time_cold_ms(torch, lambda: ref.fused_interp_ref(*fi_real),
+                              10),
         bound_ms=fi_bound,
         bound_by="bytes" if nb / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S
         else "operations")
+    # the kernel's own cut of the measurements on this card
+    split = (ctypes.c_int * 2)()
+    build.library("fused_interp").fused_interp_split(
+        Q, M, F, torch.cuda.get_device_properties(0).multi_processor_count,
+        split)
+    n_split, split_len = split
     for name in ("sizing_latency", "fused_interp"):
         rec = records[name]
         print(f"{name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
-              f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-              f"library none")
+              f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+              f"{rec['bound_ms'] / rec['ms']:.4f} of the kernel's time), "
+              f"library none" + (f"; {n_split} splits of {split_len} rows"
+                                 if name == "fused_interp" else ""))
+    # yardsticks of the cold timing: an empty launch (a one-element fill),
+    # and two PyTorch elementwise kernels moving path A's bytes
+    one = torch.empty(1, device=dev)
+    outs = [torch.empty_like(sl_args[0]) for _ in range(2)]
+
+    def stream():
+        torch.add(sl_args[0], sl_args[1], out=outs[0])
+        torch.add(sl_args[2], sl_args[3], out=outs[1])
+
+    mb = sum(t.numel() * 4 for t in list(sl_args[:4]) + outs) / 1e6
+    print(f"yardsticks: empty launch "
+          f"{time_cold_ms(torch, lambda: one.fill_(1.0), 100):.4f} ms cold, "
+          f"{time_ms(torch, lambda: one.fill_(1.0), 200):.4f} ms warm; two "
+          f"torch.add over path A's {mb:.1f} MB "
+          f"{time_cold_ms(torch, stream, 100):.4f} ms cold, "
+          f"{time_ms(torch, stream, 200):.4f} ms warm")
+    del outs
     attn_rows = time_attention(torch, ops, ref, dev)
     train_rows = time_training_kernels(torch, ops, ref, dev)
     rec_rows = time_recurrent(torch, ops, ref, dev, xq_b, xm_b)

@@ -79,63 +79,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+#include "ieee_div.cuh"
 #include "warp_tree.cuh"
 
 namespace {
 
-// (cp.async and div_rn as tensor_core.cuh has them: that header belongs to
-// the attention kernels, whose edits need not rebuild this one)
-
-// 16 bytes from device to shared memory, asynchronously; the first
-// src_bytes (0 or 16) are read, the rest zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(src_bytes));
-}
-// 4 bytes, the same way (no zero fill)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// x / d rounded to nearest, given rd = 1 / d rounded to nearest: a
-// Markstein correction step, IEEE division for quotients in the normal
-// range with no branch (and no call, which would spill around it)
-__device__ __forceinline__ float div_rn(float x, float d, float rd) {
-  const float q = x * rd;
-  return fmaf(fmaf(-q, d, x), rd, q);
-}
-
-// 1 / d rounded to nearest, for d >= 1 (a sum of exponentials one of which
-// is 1), also without the division's call: the approximate reciprocal, a
-// Newton step (within an ulp), then of it and its two neighbours the one
-// with the least |1 - d x|, which is the one nearest 1 / d
-__device__ __forceinline__ float rcp_rn(float d) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  r = fmaf(r, fmaf(-d, r, 1.0f), r);
-  const float up = __int_as_float(__float_as_int(r) + 1);
-  const float dn = __int_as_float(__float_as_int(r) - 1);
-  float e = fabsf(fmaf(-d, r, 1.0f));
-  const float eu = fabsf(fmaf(-d, up, 1.0f));
-  const float ed = fabsf(fmaf(-d, dn, 1.0f));
-  if (eu < e) {
-    r = up;
-    e = eu;
-  }
-  return ed < e ? dn : r;
-}
+using repro_async::cp_async16;
+using repro_async::cp_async4;
+using repro_async::cp_async_commit;
+using repro_async::cp_async_wait;
+using repro_div::div_rn;
+using repro_div::rcp_rn;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;

@@ -154,6 +154,11 @@ def sizing_latency(lam, mu, repl, visit_w, adj, *, c_max: int,
     return soj, path
 
 
+#: The least normal float32: the card's reciprocal (``ieee_div.cuh``
+#: ``rcp_rn``) takes arguments at or above it.
+_F32_MIN = torch.finfo(torch.float32).tiny
+
+
 def fused_interp(xq, xm, y, w_rec, *, kind: str = "idw",
                  length_scale: float = 0.25, idw_power: float = 2.0,
                  eps: float = 1e-9):
@@ -162,7 +167,8 @@ def fused_interp(xq, xm, y, w_rec, *, kind: str = "idw",
     recency-weighted global mean as the far-field fallback) and the
     nearest-measurement distance, with no (Q, M) distance matrix in device
     memory.  Rows with zero recency weight contribute nothing to the
-    estimate.  On the card F is at most 256.
+    estimate.  On the card F is at most 256, eps (IDW) at least the least
+    normal float32, and 2 length_scale^2 (RBF) a normal float32.
     """
     Q, F = xq.shape
     M, F2 = xm.shape
@@ -184,6 +190,14 @@ def fused_interp(xq, xm, y, w_rec, *, kind: str = "idw",
                                     idw_power=idw_power, eps=eps)
     if F > 256:
         raise ValueError(f"fused_interp kernel takes F <= 256, got {F}")
+    if kind == "idw" and not eps >= _F32_MIN:
+        raise ValueError(f"fused_interp kernel takes eps >= {_F32_MIN}, got "
+                         f"{eps}")
+    rbf_den = 2.0 * length_scale * length_scale
+    if kind == "rbf" and not _F32_MIN <= rbf_den <= torch.finfo(
+            torch.float32).max:
+        raise ValueError(f"fused_interp kernel takes 2 length_scale^2 in "
+                         f"the normal float32 range, got {rbf_den}")
     mean = torch.empty((Q,), dtype=f32, device=xq.device)
     dmin = torch.empty((Q,), dtype=f32, device=xq.device)
     if Q == 0:
@@ -192,11 +206,33 @@ def fused_interp(xq, xm, y, w_rec, *, kind: str = "idw",
         _check("fused_interp", _kernel("fused_interp")(
             xq.data_ptr(), xm.data_ptr(), y.data_ptr(), w_rec.data_ptr(),
             mean.data_ptr(), dmin.data_ptr(), Q, M, F, int(kind == "rbf"),
-            float(idw_power / 2.0), float(eps),
-            float(2.0 * length_scale * length_scale),
+            float(idw_power / 2.0), float(eps), float(rbf_den),
             torch.cuda.current_stream().cuda_stream))
     LAUNCHES["fused_interp"] += 1
     return mean, dmin
+
+
+def reciprocal_rn(x):
+    """Not on any path: 1 / x as the kernels take it (``ieee_div.cuh``
+    ``rcp_rn``, the IDW weight's reciprocal), elementwise over float32 x
+    of magnitude at least 2^-126 (0 past 2^126, where IEEE's quotient is
+    subnormal); IEEE 1 / x on the CPU.  For the tests: on the card it must
+    equal IEEE division with subnormal results flushed to zero."""
+    if not _on_card("reciprocal_rn", {"x": x}, {"x": torch.float32}):
+        return 1.0 / x
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fn = _fns.get("reciprocal_rn")
+    if fn is None:
+        fn = build.library("fused_interp").fused_interp_reciprocal
+        fn.argtypes = [_P, _P, ctypes.c_longlong, _P]
+        fn.restype = ctypes.c_int
+        _fns["reciprocal_rn"] = fn
+    with torch.cuda.device(x.device):
+        _check("reciprocal_rn", fn(x.data_ptr(), out.data_ptr(), x.numel(),
+                                   torch.cuda.current_stream().cuda_stream))
+    return out
 
 
 #: Mask kinds of :func:`flash_attention`, as the kernel numbers them.

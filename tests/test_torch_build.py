@@ -64,4 +64,19 @@ def test_system_headers_and_missing_files_are_not_followed(csrc):
     _edit(csrc / "fused_interp.cu",
           '\n#include <cuda_runtime.h>\n#include "not_here.cuh"\n')
     assert [p.name for p in build.sources("fused_interp")] == [
-        "fused_interp.cu"]
+        "fused_interp.cu", "cp_async.cuh", "ieee_div.cuh"]
+
+
+@pytest.mark.parametrize("header,includers", [
+    ("ieee_div.cuh", {"flash_decode", "fused_interp"}),
+    ("cp_async.cuh", {"flash_decode", "fused_interp"}),
+    ("warp_tree.cuh", {"flash_decode", "wkv6"}),
+    ("tensor_core.cuh", {"flash_attention", "flash_attention_bwd"}),
+])
+def test_editing_a_shared_header_renames_exactly_its_includers(
+        csrc, header, includers):
+    before = {name: build._target(name)[0] for name in build.SOURCES}
+    _edit(csrc / header)
+    renamed = {name for name in build.SOURCES
+               if build._target(name)[0] != before[name]}
+    assert renamed == includers

@@ -46,8 +46,53 @@ def test_sizing_latency_kernel_on_card(cuda, B, K, c_max):
     want = ref.sizing_latency_ref(lam, mu, repl, w, adj, c_max=c_max)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["sizing_latency"] == n0 + 1
-    torch.testing.assert_close(got[0], want[0], **SIZING_TOL)
-    torch.testing.assert_close(got[1], want[1], **SIZING_TOL)
+    # bit-equal: -fmad=false, IEEE divisions, the plain version's order
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def _adjacency(kind, K, g, dev):
+    """(K, K) bool: an upper triangle (tiers in index order), the same
+    triangle under a random relabelling of the tiers (acyclic, children
+    not after their parents in index order), a cycle through every tier,
+    a self-loop on one, or no edge."""
+    tri = torch.triu(torch.rand((K, K), generator=g, device=dev) < 0.5, 1)
+    if kind == "triangle":
+        return tri
+    if kind == "permuted":
+        p = torch.randperm(K, generator=g, device=dev)
+        return tri[p][:, p]
+    if kind == "cycle":
+        return tri | torch.roll(torch.eye(K, dtype=torch.bool, device=dev),
+                                1, dims=1).T
+    if kind == "self_loop":
+        a = tri.clone()
+        a[K // 2, K // 2] = True
+        return a
+    return torch.zeros((K, K), dtype=torch.bool, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["triangle", "permuted", "cycle",
+                                  "self_loop", "none"])
+@pytest.mark.parametrize("B,K,c_max", [(1000, 8, 3), (777, 13, 4),
+                                       (300, 32, 2), (5000, 3, 5)])
+def test_sizing_latency_kernel_adjacency_routes(cuda, kind, B, K, c_max):
+    """Acyclic adjacencies take one pass in reverse topological order,
+    cyclic ones K Jacobi steps; both bit-equal to the plain version."""
+    g = _gen(B + 7 * K, cuda)
+    mu = 5.0 + 55.0 * torch.rand((B, K), generator=g, device=cuda)
+    repl = torch.randint(1, c_max + 2, (B, K), generator=g,
+                         device=cuda).float()
+    lam = (0.05 + 1.15 * torch.rand((B, K), generator=g, device=cuda)) \
+        * mu * repl
+    w = 2.0 * torch.rand((B, K), generator=g, device=cuda)
+    adj = _adjacency(kind, K, g, cuda)
+    got = ops.sizing_latency(lam, mu, repl, w, adj, c_max=c_max)
+    want = ref.sizing_latency_ref(lam, mu, repl, w, adj, c_max=c_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu
@@ -65,6 +110,232 @@ def test_fused_interp_kernel_on_card(cuda, kind, Q, M, F):
     want = ref.fused_interp_ref(xq, xm, y, w, kind=kind)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["fused_interp"] == n0 + 1
+    torch.testing.assert_close(got[0], want[0], **INTERP_TOL)
+    torch.testing.assert_close(got[1], want[1], **INTERP_TOL)
+
+
+# fused_interp's splits of the measurements (chosen at launch, from the
+# card's SM count): path B's chunk and a build's last chunk (Q 256), M past
+# a bucket, M not a multiple of a warp's tile (32 rows), of the 16 warps or
+# of the split, one query a thread (F 64) and F past the register-resident
+# instances (130)
+_INTERP_SPLIT_SHAPES = [(8192, 1024, 16), (256, 1024, 16), (8192, 2048, 16),
+                        (1000, 1000, 16), (200, 700, 32), (100, 500, 64),
+                        (130, 600, 130), (33, 70, 5)]
+
+
+def _interp_split(Q, M, F, sms=132):
+    """The kernel's own cut of M measurements on a card of ``sms`` SMs
+    (``fused_interp_split``): (splits, rows a split)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    fn = build.library("fused_interp").fused_interp_split
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 2)()
+    fn(Q, M, F, sms, out)
+    return out[0], out[1]
+
+
+def _interp_block(F):
+    # queries a block: 4 a thread up to 16 features, 64 / FMAX up to 64
+    fmax = next(f for f in (8, 16, 32, 64, 128, 256) if F <= f)
+    return 32 * (min(4, 64 // fmax) if fmax <= 64 else 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,plan", [
+    ((8192, 1024, 16), (2, 512)), ((256, 1024, 16), (8, 128)),
+    ((8192, 2048, 16), (2, 1024)), ((1000, 1000, 16), (8, 125)),
+    ((200, 700, 32), (8, 88)), ((100, 500, 64), (8, 63)),
+    ((130, 600, 130), (8, 75)), ((33, 70, 5), (2, 35)), ((5, 3, 7), (1, 3)),
+    ((300, 37, 9), (1, 37)), ((130, 256, 130), (4, 64)),
+    ((64, 3000, 16), (8, 375)), ((8192, 63, 16), (1, 63)),
+    ((8192, 65, 16), (2, 33)), ((8448, 1024, 16), (2, 512)),
+    ((8576, 1024, 16), (1, 1024))])
+def test_fused_interp_split_on_the_h100(cuda, shape, plan):
+    """The split at the H100's 132 SMs: two at path B's chunk (64 query
+    blocks of 128, 128 blocks in one wave), eight at a build's last chunk,
+    and at the edges: 64 rows a split (M 63, 65), blocks_q 66 and 67."""
+    assert _interp_split(*shape) == plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [3, 16, 40, 100, 256])
+def test_fused_interp_split_covers_any_measurement_count(cuda, F):
+    g = torch.Generator().manual_seed(F)
+    for _ in range(300):
+        Q = int(torch.randint(1, 20000, (1,), generator=g))
+        M = int(torch.randint(1, 50000, (1,), generator=g))
+        sms = int(torch.randint(1, 300, (1,), generator=g))
+        n, L = _interp_split(Q, M, F, sms)
+        assert 1 <= n <= 8
+        assert (n - 1) * L < M <= n * L          # non-empty, covers M
+        if n > 1:
+            # a split is taken only to add blocks, and keeps 64 rows
+            assert -(-Q // _interp_block(F)) * n <= sms
+            assert M >= 64 * (n - 1)
+
+
+def _interp_inputs(Q, M, F, dev):
+    g = _gen(Q * 7 + M + F, dev)
+    return (torch.randn((Q, F), generator=g, device=dev),
+            torch.randn((M, F), generator=g, device=dev),
+            torch.randn((M,), generator=g, device=dev),
+            0.1 + 0.9 * torch.rand((M,), generator=g, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["idw", "rbf"])
+@pytest.mark.parametrize("Q,M,F", _INTERP_SPLIT_SHAPES)
+def test_fused_interp_kernel_split_shapes(cuda, kind, Q, M, F):
+    args = _interp_inputs(Q, M, F, cuda)
+    got = ops.fused_interp(*args, kind=kind)
+    want = ref.fused_interp_ref(*args, kind=kind)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **INTERP_TOL)
+    torch.testing.assert_close(got[1], want[1], **INTERP_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("power", [1.0, 3.0])
+@pytest.mark.parametrize("Q,M,F", [(8192, 1024, 16), (256, 1024, 16),
+                                   (300, 37, 9)])
+def test_fused_interp_kernel_idw_power(cuda, Q, M, F, power):
+    """IDW with a power other than 2 (the weight through powf)."""
+    args = _interp_inputs(Q, M, F, cuda)
+    got = ops.fused_interp(*args, idw_power=power)
+    want = ref.fused_interp_ref(*args, idw_power=power)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **INTERP_TOL)
+    torch.testing.assert_close(got[1], want[1], **INTERP_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,M,F", _INTERP_SPLIT_SHAPES)
+def test_fused_interp_kernel_is_deterministic(cuda, Q, M, F):
+    """Partials meet in a fixed order (warps, then splits by the last
+    block), so two calls give the same bits."""
+    args = _interp_inputs(Q, M, F, cuda)
+    a = ops.fused_interp(*args)
+    b = ops.fused_interp(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,M,F", [(8192, 1024, 16), (256, 1024, 16),
+                                   (300, 37, 9), (130, 256, 130)])
+def test_fused_interp_kernel_is_exact_at_measured_states(cuda, Q, M, F):
+    """A query equal to a measurement row: d2 == 0 exactly (the same fmaf
+    chain for |q|^2, |m|^2 and q.m), so dmin is 0.0 and the IDW weight
+    w / eps dominates: the mean is that row's y."""
+    xq, xm, y, w = _interp_inputs(Q, M, F, cuda)
+    g = _gen(Q + 1, cuda)
+    n = min(Q, M)
+    at = torch.randperm(Q, generator=g, device=cuda)[:n]
+    rows = torch.randperm(M, generator=g, device=cuda)[:n]
+    xq[at] = xm[rows]
+    mean, dmin = ops.fused_interp(xq, xm, y, w)
+    torch.cuda.synchronize()
+    assert bool((dmin[at] == 0.0).all())
+    torch.testing.assert_close(mean[at], y[rows], **INTERP_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,M,F", [(8192, 1024, 16), (256, 1024, 16),
+                                   (300, 37, 9)])
+def test_fused_interp_kernel_fallback(cuda, Q, M, F):
+    """Weights that sum to at most 1e-12 give the w-weighted global mean
+    of y: all-zero recency weights (the mean of nothing: 0), and RBF
+    weights that underflow far from every measurement."""
+    xq, xm, y, w = _interp_inputs(Q, M, F, cuda)
+    zero = torch.zeros_like(w)
+    mean, _ = ops.fused_interp(xq, xm, y, zero)
+    want = ref.fused_interp_ref(xq, xm, y, zero)[0]
+    torch.cuda.synchronize()
+    assert bool((want == 0.0).all())
+    torch.testing.assert_close(mean, want, **INTERP_TOL)
+    far = xq + 100.0
+    mean, dmin = ops.fused_interp(far, xm, y, w, kind="rbf")
+    want = ref.fused_interp_ref(far, xm, y, w, kind="rbf")
+    torch.cuda.synchronize()
+    glob = float((y.double() * w.double()).sum() / w.double().sum())
+    torch.testing.assert_close(mean, want[0], **INTERP_TOL)
+    torch.testing.assert_close(mean, torch.full_like(mean, glob),
+                               **INTERP_TOL)
+    torch.testing.assert_close(dmin, want[1], **INTERP_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e", [-100, -30, -20, -10, -2, -1, 0, 1, 2, 10, 15,
+                               20, 30, 60, 100])
+def test_reciprocal_is_correctly_rounded(cuda, e):
+    """The kernels' reciprocal (ieee_div.cuh rcp_rn: the IDW weight, the
+    decode weights' sums) equals IEEE 1 / x for every significand of the
+    binade [2^e, 2^(e + 1)), and of its negative."""
+    bits = torch.arange(1 << 23, dtype=torch.int32, device=cuda) \
+        | ((127 + e) << 23)
+    x = bits.view(torch.float32)
+    x = torch.cat([x, -x])
+    got = ops.reciprocal_rn(x)
+    want = (1.0 / x.cpu()).to(cuda)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_reciprocal_range_edges(cuda):
+    """At the ends of rcp_rn's range: IEEE 1 / x down to x = 2^-126, and
+    past 2^126 (inf included) 0 where IEEE's quotient is subnormal."""
+    tiny = torch.finfo(torch.float32).tiny
+    big = torch.tensor(2.0 ** 126)
+    x = torch.tensor([tiny, tiny * 1.5, 2.0 ** -120, 2.0 ** 120, 3e37],
+                     dtype=torch.float32)
+    x = torch.cat([x, torch.nextafter(big, torch.tensor(0.0)).reshape(1),
+                   big.reshape(1), torch.nextafter(big, torch.tensor(
+                       float("inf"))).reshape(1),
+                   torch.tensor([1e38, 3e38, torch.finfo(torch.float32).max,
+                                 float("inf")])])
+    want = 1.0 / x
+    want = torch.where(want.abs() < tiny, torch.zeros_like(want), want)
+    got = ops.reciprocal_rn(x.to(cuda)).cpu()
+    assert torch.equal(got, want), (x, got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [0.0, 1e-45, 1e-40])
+def test_fused_interp_kernel_refuses_eps_zero(cuda, eps):
+    """The kernel's reciprocal is correctly rounded from 2^-126 up, so IDW
+    on the card needs eps at least the least normal float32, as RBF needs
+    a normal 2 length_scale^2."""
+    x = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError, match="eps >="):
+        ops.fused_interp(x, x, x[:, 0].contiguous(), x[:, 0].contiguous(),
+                         eps=eps)
+    with pytest.raises(ValueError, match="length_scale"):
+        ops.fused_interp(x, x, x[:, 0].contiguous(), x[:, 0].contiguous(),
+                         kind="rbf", length_scale=eps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,power,scale", [
+    ("idw", 2.0, 3e18), ("idw", 2.0, 1e20), ("idw", 8.0, 1e6),
+    ("rbf", 2.0, 3e18), ("rbf", 2.0, 1e20)])
+@pytest.mark.parametrize("Q,M,F", [(8192, 1024, 16), (300, 37, 9)])
+def test_fused_interp_kernel_row_at_overflowing_distance(cuda, kind, power,
+                                                         scale, Q, M, F):
+    """One measurement row so far that its weight's divisor passes 2^126
+    (3e18: d2 about 1.4e38 at F 16) or overflows (1e20: |m|^2 is inf; IDW
+    power 8 at 1e6: d2^4 is inf): its weight is 0, the other rows set the
+    mean, as in the plain version."""
+    xq, xm, y, w = _interp_inputs(Q, M, F, cuda)
+    xm[M // 2] = scale
+    got = ops.fused_interp(xq, xm, y, w, kind=kind, idw_power=power)
+    want = ref.fused_interp_ref(xq, xm, y, w, kind=kind, idw_power=power)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[0]).all())
     torch.testing.assert_close(got[0], want[0], **INTERP_TOL)
     torch.testing.assert_close(got[1], want[1], **INTERP_TOL)
 
