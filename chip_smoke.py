@@ -64,14 +64,15 @@ What it does, in order; any failure exits non-zero:
    shapes (the attention kernels also at PREFILL_32K and DECODE_32K with
    the batch cut and at path E's hd-256 shapes, the forward also at path
    D's training microbatch, the backward also at qwen3-8b's training head
-   layout; every kernel but ``quantize_int8`` with a cold L2,
-   ``time_cold_ms``), beside the least time the card could take (its
-   bound, and the share of the kernel's time it is), the kernel's
-   achieved bytes/s, ``flash_decode``'s split count, and the library's
-   time on the same inputs where one PyTorch call computes the function:
-   ``scaled_dot_product_attention`` forward or backward for attention,
-   ``torch.cdist`` squared for ``pairwise_sqdist`` (timed only; the port
-   never calls them);
+   layout; every kernel with a cold L2, ``time_cold_ms``), beside the
+   least time the card could take (its bound, and the share of the
+   kernel's time it is), the kernel's achieved bytes/s, ``flash_decode``'s
+   split count, and the library's time on the same inputs where one
+   PyTorch call computes the function: ``scaled_dot_product_attention``
+   forward or backward for attention, ``torch.cdist`` squared for
+   ``pairwise_sqdist`` (timed only; the port never calls them); and
+   ``pairwise_sqdist`` beside the card's own write of its (Q, M) result
+   (``fill_``, cold and warm), the floor of a write-bound kernel;
 10. prints one JSON line of kernel records (each with every timed shape
    under ``shapes``), then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -777,6 +778,7 @@ def time_recurrent(torch, ops, ref, dev, xq_b, xm_b) -> list[dict]:
                 4 * B * H * S * hd * hd, FP32_OPS_PER_S)))
     del r, k, v, logw
     (Q, F), M = xq_b.shape, xm_b.shape[0]
+    d2 = torch.empty((Q, M), device=dev)
     rows.append(dict(
         name="pairwise_sqdist", label="path B grid chunk",
         shape=f"Q {Q}, M {M}, F {F}, float32",
@@ -785,8 +787,15 @@ def time_recurrent(torch, ops, ref, dev, xq_b, xm_b) -> list[dict]:
             xq_b, xm_b), 20),
         library_ms=time_cold_ms(torch, lambda: torch.cdist(
             xq_b, xm_b).square_(), 100),
+        # the floor of a write-bound kernel: the card's own cold write of
+        # the same (Q, M) float32 result; and both warm, where the result
+        # stays in the L2 and only the kernel's own work is timed
+        write_ms=time_cold_ms(torch, lambda: d2.fill_(0.0), 100),
+        warm_ms=time_ms(torch, lambda: ops.pairwise_sqdist(xq_b, xm_b), 200),
+        write_warm_ms=time_ms(torch, lambda: d2.fill_(0.0), 200),
         **bound(4 * (Q * F + M * F + Q * M), Q * M * (2 * F + 4)
                 + (Q + M) * 2 * F, FP32_OPS_PER_S)))
+    del d2
     torch.cuda.empty_cache()
     for row in rows:
         print_row(row)
@@ -803,6 +812,12 @@ def print_row(r: dict) -> None:
           f"MB, {r['nops'] / 1e9:.2f} GFLOP; {r['bound_ms'] / r['ms']:.4f} "
           f"of the kernel's time; achieved "
           f"{r['nbytes'] / r['ms'] / 1e9:.3f} TB/s)")
+    if "write_ms" in r:
+        print(f"{r['name']} {r['label']}: the card's cold write of its "
+              f"result (fill_) {r['write_ms']:.4f} ms, kernel "
+              f"{r['ms'] / r['write_ms']:.4f}x of it; warm: fill_ "
+              f"{r['write_warm_ms']:.4f} ms, kernel {r['warm_ms']:.4f} ms "
+              f"({r['warm_ms'] / r['write_warm_ms']:.4f}x)")
 
 
 def record_rows(rows: list[dict], name: str) -> list[dict]:
@@ -810,7 +825,9 @@ def record_rows(rows: list[dict], name: str) -> list[dict]:
     return [{"label": r["label"], "shape": r["shape"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-             "tb_per_s": r["nbytes"] / r["ms"] / 1e9}
+             "tb_per_s": r["nbytes"] / r["ms"] / 1e9,
+             **{k: r[k] for k in ("write_ms", "warm_ms", "write_warm_ms")
+                if k in r}}
             for r in rows if r["name"] == name]
 
 
@@ -915,8 +932,9 @@ def check_recurrent_kernels(torch, ops, ref, dev, xq_b, xm_b
     shapes, against the model's chunked form and the sequential oracle at
     the JAX tests' atol 5e-4 / rtol 1e-3.  ``pairwise_sqdist`` on path B's
     real probes and grid chunk (``xm_b``, ``xq_b``) and on the ragged
-    shapes of tests/test_surrogate.py, at atol / rtol 1e-4.  Returns the
-    max abs errors."""
+    shapes of tests/test_surrogate.py and unaligned ones (M % 4 != 0), at
+    atol / rtol 1e-4; a set against itself gives an exactly zero diagonal.
+    Returns the max abs errors."""
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def rnd(shape, scale=1.0):
@@ -965,17 +983,19 @@ def check_recurrent_kernels(torch, ops, ref, dev, xq_b, xm_b
                f"{xm_b.shape[0]} probes x {xq_b.shape[1]} features)",
         ("d2",), (ops.pairwise_sqdist(xq_b, xm_b),),
         (ref.pairwise_sqdist_ref(xq_b, xm_b),), SQDIST_TOL))
-    for Q, M, F in ((5, 3, 7), (300, 17, 130), (513, 256, 6)):
+    for Q, M, F in ((5, 3, 7), (300, 17, 130), (513, 256, 6),
+                    (8193, 1025, 16), (63, 1023, 3)):
         xq, xm = rnd((Q, F)), rnd((M, F))
         errs["pairwise_sqdist"].append(compare(
             torch, f"pairwise_sqdist random ({Q}x{M}x{F})", ("d2",),
             (ops.pairwise_sqdist(xq, xm),),
             (ref.pairwise_sqdist_ref(xq, xm),), SQDIST_TOL))
-    x = rnd((40, 9))
-    d2 = ops.pairwise_sqdist(x, x)
-    check(bool((d2.diagonal().abs() <= 1e-5).all() and (d2 >= 0).all()),
-          "pairwise_sqdist of a set with itself: zero diagonal within 1e-5, "
-          "no negative entry")
+    for Q, F in ((40, 9), (1025, 16), (300, 130)):
+        x = rnd((Q, F))
+        d2 = ops.pairwise_sqdist(x, x)
+        check(bool((d2.diagonal() == 0).all() and (d2 >= 0).all()),
+              f"pairwise_sqdist of a set with itself ({Q}x{F}): exactly "
+              f"zero diagonal, no negative entry")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return {name: max(e) for name, e in errs.items()}
@@ -1250,8 +1270,8 @@ def time_training_kernels(torch, ops, ref, dev) -> list[dict]:
     rows.append(dict(
         name="quantize_int8", label="embed gradient",
         shape=f"{M} x {N}, float32",
-        ms=time_ms(torch, lambda: ops.quantize_int8(x), 200),
-        plain_ms=time_ms(torch, lambda: ref.quantize_int8_ref(x), 20),
+        ms=time_cold_ms(torch, lambda: ops.quantize_int8(x), 200),
+        plain_ms=time_cold_ms(torch, lambda: ref.quantize_int8_ref(x), 20),
         library_ms=None, **bound(4 * M * N + M * N + 4 * M, 0,
                                  FP32_OPS_PER_S)))
     del x

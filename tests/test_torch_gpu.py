@@ -863,6 +863,53 @@ def test_pairwise_sqdist_kernel_on_card(cuda, Q, M, F):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
+def _sqdist_one_launch(xq, xm):
+    n0 = ops.LAUNCHES["pairwise_sqdist"]
+    d2 = ops.pairwise_sqdist(xq, xm)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pairwise_sqdist"] == n0 + 1
+    return d2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 3, 16, 33, 130, 256])
+def test_pairwise_sqdist_kernel_zero_diagonal(cuda, F):
+    """A set against itself: the norms and the dot products run the same
+    fmaf chain in feature order, so every diagonal entry is exactly 0."""
+    x = torch.randn((517, F), generator=_gen(F, cuda), device=cuda)
+    d2 = _sqdist_one_launch(x, x)
+    assert torch.equal(d2.diagonal(), torch.zeros(517, device=cuda))
+    assert bool((d2 >= 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [7, 16])
+@pytest.mark.parametrize("M", [1, 3, 1023, 1025])
+@pytest.mark.parametrize("Q", [1, 63, 8193])
+def test_pairwise_sqdist_kernel_ragged_shapes(cuda, Q, M, F):
+    """Ragged tiles on both sides, rows not 16-byte aligned (M % 4 != 0:
+    scalar stores) and unaligned feature rows (F 7: scalar loads)."""
+    g = _gen(Q * M + F, cuda)
+    xq = torch.randn((Q, F), generator=g, device=cuda)
+    xm = torch.randn((M, F), generator=g, device=cuda)
+    torch.testing.assert_close(_sqdist_one_launch(xq, xm),
+                               ref.pairwise_sqdist_ref(xq, xm),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [6, 16, 130])
+def test_pairwise_sqdist_kernel_large_inputs(cuda, F):
+    """Inputs at scale 1e3 (distances near 2e6 F): the expansion's
+    rounding stays within rtol 1e-4 of the plain version's."""
+    g = _gen(1000 + F, cuda)
+    xq = 1e3 * torch.randn((300, F), generator=g, device=cuda)
+    xm = 1e3 * torch.randn((200, F), generator=g, device=cuda)
+    torch.testing.assert_close(_sqdist_one_launch(xq, xm),
+                               ref.pairwise_sqdist_ref(xq, xm),
+                               atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.gpu
 def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
     a = torch.rand((2, 8, 16), device=cuda)
