@@ -27,10 +27,24 @@ What it does, in order; any failure exits non-zero:
    cuBLAS's float32 product, score by score;
 4. path A: the container-sizing controller on the 8-tier e-commerce DAG's
    coarse menu (65,536 states), 12 rounds with a day -> evening drift of
-   the request mix; whole-grid tables go through ``sizing_latency``;
+   the request mix; whole-grid tables go through ``sizing_latency``, and
+   each round's chains walk in one ``anneal_walk`` launch;
 5. path B: the rich menu (1,679,616 states, past the 200k tabulation cap)
    through ``SurrogateSource(n_probe=1024)``, 3 rounds; every table build
-   interpolates the grid through ``fused_interp`` (206 launches);
+   interpolates the grid through ``fused_interp`` (206 launches), one
+   ``anneal_walk`` a round;
+5b. path G, the paper's procurement loop: (a) ``anneal_walk`` bit-equal
+   to its plain version on paths A's and B's real inputs, Fig. 4's and
+   Fig. 5's tables, a noisy chain, per-chain tables with extra rows and a
+   valid mask, 16 axes and C = 1, 33, 1,024; (b) both figure modules
+   (``repro_torch.figures``: Figs. 2-5 and 6-11) on the card, every check
+   passing, ``fig4_engine_speedup``'s >= 10x included; (c)
+   ``ProcurementController`` on the paper's EC2 space with the
+   quickstart's blend: ``plan()`` through the exhaustive table and
+   through ``SurrogateSource`` (each planned y within 1.02x of its table's
+   valid minimum, one ``anneal_walk`` launch a plan), then 300 jobs; (d)
+   ``fleet_chains`` at 1,000 tenants (bucket 1,024) x 32 steps with
+   per-tenant tables and extra rows, rows 0..999 bit-equal unpadded;
 6. path C: the annealed serve loop (``repro_torch.serving.anneal``) on
    qwen3-8b at its full width and depth (36 layers, random bf16 weights
    from a seed): 6 rounds of 24 requests of 512 tokens, 16 new tokens
@@ -72,7 +86,13 @@ What it does, in order; any failure exits non-zero:
    forward or backward for attention, ``torch.cdist`` squared for
    ``pairwise_sqdist`` (timed only; the port never calls them); and
    ``pairwise_sqdist`` beside the card's own write of its (Q, M) result
-   (``fill_``, cold and warm), the floor of a write-bound kernel;
+   (``fill_``, cold and warm), the floor of a write-bound kernel; and
+   ``anneal_walk`` at path A's round, Fig. 4's sweep and ``fleet_chains``'
+   bucket on the inputs those paths gave it, its bytes counted from what
+   each walk looked up, beside its latency bound (S dependent loads at
+   the latency a one-thread pointer chase measures on the card, the
+   probe ``kernels/probes/dependent_load.cu``) and the time of its first
+   chain alone (the serial chain of S steps);
 10. prints one JSON line of kernel records (each with every timed shape
    under ``shapes``), then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -92,6 +112,7 @@ The DAG and mixes are copied from ``benchmarks/container_sizing.py``
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -826,8 +847,9 @@ def record_rows(rows: list[dict], name: str) -> list[dict]:
              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "tb_per_s": r["nbytes"] / r["ms"] / 1e9,
-             **{k: r[k] for k in ("write_ms", "warm_ms", "write_warm_ms")
-                if k in r}}
+             **{k: r[k] for k in ("write_ms", "warm_ms", "write_warm_ms",
+                                  "chain_ms", "latency_bound_ms",
+                                  "dep_load_ns", "table_bytes") if k in r}}
             for r in rows if r["name"] == name]
 
 
@@ -1365,6 +1387,455 @@ def path_b_chunk(torch, large, dev):
             torch.ones(len(obs), dtype=torch.float32, device=dev))
 
 
+# -- path G: the paper's procurement loop -------------------------------------
+
+#: path G's workload: the quickstart's controller (examples/quickstart.py)
+#: on the paper's EC2 space, planned with ``plan()``'s defaults (256
+#: chains x 200 steps), then 300 jobs; ``fleet_chains`` at 1,000 tenants
+#: (bucket 1,024) x 32 steps, ``FleetController``'s ``steps_per_round``
+G_SUBMITS = 300
+G_TENANTS, G_FLEET_STEPS = 1000, 32
+
+
+@contextlib.contextmanager
+def capture_walk(ops, store: dict, label: str):
+    """While open, every ``ops.anneal_walk`` call also leaves its inputs
+    in ``store[label]`` (the last call's), so the kernel can be checked
+    and timed later on the very tensors a path gave it."""
+    real = ops.anneal_walk
+
+    def spy(*args, **kw):
+        store[label] = (args, kw)
+        return real(*args, **kw)
+
+    ops.anneal_walk = spy
+    try:
+        yield
+    finally:
+        ops.anneal_walk = real
+
+
+def walk_shape(args) -> str:
+    inits, table, taus, axis = args[:4]
+    C, S = axis.shape
+    return (f"C {C}, S {S}, {inits.shape[1]} axes, table "
+            f"{tuple(table.shape)}")
+
+
+def walk_inputs(torch, dev, C, S, shape, categorical, table=None, *,
+                dynamic=False, per_chain=False, extra=False, valid=False,
+                noise_std=0.0, seed=0):
+    """``ops.anneal_walk``'s inputs for C chains of S steps on ``shape``:
+    ``table`` (flat, its time or chain axes first) or a random one in [0,
+    3); temperatures in [0.1, 1.1); random starting states, held valid by
+    the mask (about 4 in 5 states) when ``valid``; the draws made as
+    ``anneal_fleet`` makes them."""
+    from repro_torch.core.annealing import _draw
+    from repro_torch.core.state import EncodedSpace
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    size = 1
+    for n in shape:
+        size *= n
+    lead = ((C,) if per_chain else ()) + ((S,) if dynamic else ())
+    if table is None:
+        table = 3.0 * torch.rand(lead + (size,), generator=g, device=dev)
+    taus = 0.1 + torch.rand((C, S), generator=g, device=dev)
+    inits = torch.stack([torch.randint(0, n, (C,), generator=g, device=dev)
+                         for n in shape], -1).to(torch.int32)
+    d = _draw(g, EncodedSpace(tuple(shape), tuple(categorical)), C, S,
+              noise_std > 0, dev)
+    kw = dict(shape=tuple(shape), categorical=tuple(categorical),
+              dynamic=dynamic, per_chain=per_chain, noise_std=noise_std,
+              noise=d.get("noise"), noise0=d.get("noise0"))
+    if extra:
+        kw["extra"] = torch.rand((C, size), generator=g, device=dev)
+    if valid:
+        mask = torch.rand(size, generator=g, device=dev) < 0.8
+        strides = torch.ones(len(shape), dtype=torch.int64, device=dev)
+        for i in range(len(shape) - 2, -1, -1):
+            strides[i] = strides[i + 1] * shape[i + 1]
+        mask[(inits.long() * strides).sum(-1)] = True
+        kw["valid"] = mask
+    return (inits, table, taus, d["axis"], d["up"], d["pick"],
+            d["uniform"]), kw
+
+
+def check_walk(torch, ops, ref, label, args, kw) -> float:
+    """``anneal_walk`` against its plain version on the same inputs:
+    states, ys and accepts bit-equal (equal element by element, a NaN
+    objective NaN in both).  Returns the largest |ys| difference among
+    finite entries (0 when equal)."""
+    got = ops.anneal_walk(*args, **kw)
+    want = ref.anneal_walk_ref(*args, **kw)
+    torch.cuda.synchronize()
+    same = all(g.dtype == w.dtype and g.shape == w.shape and bool(
+        ((g == w) | (g.isnan() & w.isnan()) if g.is_floating_point()
+         else g == w).all()) for g, w in zip(got, want))
+    fin = torch.isfinite(got[1]) & torch.isfinite(want[1])
+    err = float((got[1] - want[1])[fin].abs().max()) if bool(fin.any()) \
+        else 0.0
+    check(same, f"anneal_walk {label} ({walk_shape(args)}): states, ys and "
+                f"accepts bit-equal to the plain version (accept rate "
+                f"{float(got[2].float().mean()):.3f})")
+    return err
+
+
+def check_walk_kernel(torch, ops, ref, dev, captured) -> float:
+    """Phase G(a): the walk kernel against its plain version on path A's
+    and path B's real inputs (as their last rounds gave them), Fig. 4's
+    and Fig. 5's tables, a noisy chain, per-chain tables with extra rows
+    and a valid mask, 16 axes, and C = 1, 33 and 1,024."""
+    import numpy as np
+
+    from repro_torch.core.landscape import bimodal_landscape, changed_landscape
+
+    errs = [check_walk(torch, ops, ref, label, *captured[label])
+            for label in ("path A round", "path B round")]
+    y1 = torch.as_tensor(bimodal_landscape(), dtype=torch.float32,
+                         device=dev)
+    y2 = torch.as_tensor(changed_landscape(), dtype=torch.float32,
+                         device=dev)
+    args, kw = walk_inputs(torch, dev, 320, 4000, (48,), (False,), y1)
+    errs.append(check_walk(torch, ops, ref, "Fig. 4 table", args, kw))
+    fig5 = torch.stack([y1 if i < 2000 else y2 for i in range(6000)])
+    args, kw = walk_inputs(torch, dev, 1, 6000, (48,), (False,), fig5,
+                           dynamic=True)
+    errs.append(check_walk(torch, ops, ref, "Fig. 5 time-indexed table",
+                           args, kw))
+    forms = [("noisy chain", 33, 500, (5, 4, 3), (False, True, False),
+              dict(noise_std=0.4)),
+             ("per-chain tables, extra rows, valid mask", 1024, 32, (4, 30),
+              (True, False), dict(per_chain=True, extra=True, valid=True)),
+             ("16 axes, valid mask", 64, 200, (3, 2) * 8, (False, True) * 8,
+              dict(valid=True))]
+    forms += [(f"C = {C}", C, 50, (6, 5), (False, True),
+               dict(valid=True, seed=C)) for C in (1, 33, 1024)]
+    for label, C, S, shape, cat, opt in forms:
+        args, kw = walk_inputs(torch, dev, C, S, shape, cat, **opt)
+        errs.append(check_walk(torch, ops, ref, label, args, kw))
+    assert np.isfinite(errs).all()
+    return max(errs)
+
+
+def path_g(torch, ops, dev, captured) -> tuple[dict, dict]:
+    """Path G: the paper's procurement loop.  (b) both figure modules on
+    the card, every check passing (``fig4_engine_speedup`` >= 10x); (c)
+    ``ProcurementController`` on the paper's EC2 space with the
+    quickstart's blend: ``plan()`` through the exhaustive table and
+    through ``SurrogateSource``, each planned y within 1.02x of its
+    table's valid minimum, one ``anneal_walk`` launch a plan, then 300
+    jobs; (d) ``fleet_chains`` at 1,000 tenants (bucket 1,024) x 32 steps
+    with per-tenant tables and extra rows, rows 0..999 bit-equal to the
+    unpadded walk.  Returns (the launches of (b)-(d), the timings)."""
+    import numpy as np
+
+    from repro_torch.core import (
+        BLEND_BEFORE,
+        EC2_CATALOG_ADJUSTED,
+        Objective,
+        ProcurementController,
+        SimulatedEvaluator,
+        SurrogateSource,
+        fleet_chains,
+        make_ec2_space,
+    )
+    from repro_torch.device import generator
+    from repro_torch.figures import blended_workloads, paper_figures
+
+    os.environ.setdefault("REPRO_BENCH_OUT",
+                          str(ROOT / "build" / "chip_smoke_figures"))
+    timing = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+
+    # (b) the figure modules
+    results = []
+    for bench in paper_figures.BENCHES + blended_workloads.BENCHES:
+        with (capture_walk(ops, captured, "Fig. 4 sweep")
+              if bench is paper_figures.fig4_temperature
+              else contextlib.nullcontext()):
+            results.append(bench("cuda"))
+    timing["figures_s"] = time.perf_counter() - t0
+    speed = next(r for r in results
+                 if r["bench"] == "fig4_engine_speedup")["numbers"]
+    print(f"path G fig4_engine_speedup on {speed['device']}: "
+          f"{speed['chains']} chains x {speed['steps_per_chain']} steps; "
+          f"python Annealer {speed['python_annealer_s']:.4f} s, fleet cold "
+          f"{speed['fleet_cold_s']:.4f} s, warm {speed['fleet_warm_s']:.4f} "
+          f"s; speedup {speed['speedup_warm']:.1f}x warm, "
+          f"{speed['speedup_cold']:.1f}x cold")
+    for r in results:
+        check(r["ok"], f"path G {r['bench']} ({r['paper_ref']}): "
+                       f"{sum(c['ok'] for c in r['checks'])}/"
+                       f"{len(r['checks'])} checks in {r['wall_s']:.2f} s")
+
+    # (c) the controller: two plans, then the online loop
+    space = make_ec2_space(EC2_CATALOG_ADJUSTED)
+    enc = space.encoded()
+
+    def controller(source=None):
+        return ProcurementController(
+            space=space, catalog=EC2_CATALOG_ADJUSTED,
+            evaluator=SimulatedEvaluator(EC2_CATALOG_ADJUSTED,
+                                         noise_std=0.02),
+            objective=Objective(lambda_cost=1.0), blend=dict(BLEND_BEFORE),
+            evaluate_blend=True, schedule=1.0, seed=0,
+            objective_source=source, device="cuda")
+
+    before = dict(ops.LAUNCHES)
+    plans = {}
+    for label in ("exhaustive", "surrogate"):
+        source = (SurrogateSource(n_probe=32, seed=1) if label == "surrogate"
+                  else None)
+        ctrl = controller(source)
+        seen = {}
+        if source is None:
+            real_fn = ctrl._plan_objective
+
+            def record(decoded, real_fn=real_fn, seen=seen):
+                y = real_fn(decoded)
+                seen[tuple(space.encode(decoded))] = y
+                return y
+
+            ctrl._plan_objective = record
+        else:
+            real_table = source.table
+
+            def record_table(*a, real_table=real_table, seen=seen, **k):
+                table = real_table(*a, **k)
+                seen.update({tuple(int(i) for i in s): float(table[tuple(s)])
+                             for s in zip(*np.nonzero(np.isfinite(table)))})
+                return table
+
+            source.table = record_table
+        n0 = dict(ops.LAUNCHES)
+        t1 = time.perf_counter()
+        cfg, y = ctrl.plan()
+        torch.cuda.synchronize()
+        timing[f"plan_{label}_s"] = time.perf_counter() - t1
+        walks = ops.LAUNCHES["anneal_walk"] - n0["anneal_walk"]
+        interps = ops.LAUNCHES["fused_interp"] - n0["fused_interp"]
+        y_min = min(seen.values())
+        print(f"path G plan ({label}): {len(seen)} table states, planned "
+              f"({cfg.instance_type}, {cfg.n_workers} cores) y {y:.4f}, "
+              f"table's valid minimum {y_min:.4f}; anneal_walk {walks}, "
+              f"fused_interp {interps} launches; "
+              f"{timing[f'plan_{label}_s']:.3f} s")
+        check(walks == 1, f"path G plan ({label}): one anneal_walk launch "
+                          f"for the offline plan (got {walks})")
+        check(label == "exhaustive" or interps >= 1,
+              f"path G plan ({label}): the table was interpolated on the "
+              f"card ({interps} fused_interp launches)")
+        check(np.isfinite(y) and y <= 1.02 * y_min,
+              f"path G plan ({label}): y {y:.4f} within 1.02x of the "
+              f"table's valid minimum {y_min:.4f}")
+        check(ctrl.annealer.y is None and space.decode(
+            ctrl.annealer.state)["n_workers"] == cfg.n_workers,
+            f"path G plan ({label}): the online chain warm-starts at the "
+            f"plan, its objective unmeasured")
+        plans[label] = (ctrl, y_min, seen)
+    ctrl, y_min, _ = plans["exhaustive"]
+    t1 = time.perf_counter()
+    ds = ctrl.run(G_SUBMITS)
+    timing["submits_s"] = time.perf_counter() - t1
+    _, best_y = ctrl.best_config()
+    walks = ops.LAUNCHES["anneal_walk"] - before["anneal_walk"]
+    print(f"path G: {G_SUBMITS} jobs in {timing['submits_s']:.3f} s, best "
+          f"y {best_y:.4f}, exploration rate "
+          f"{ctrl.exploration_rate():.3f}, spend ${ctrl.spend():.2f}; "
+          f"anneal_walk {walks} launches in (c)")
+    check(len(ds) == G_SUBMITS and all(np.isfinite(d.y) for d in ds),
+          f"path G: {G_SUBMITS} decisions, every y finite")
+    check(walks == 2, f"path G (c): one anneal_walk launch per offline_plan "
+                      f"(2 plans, got {walks})")
+    check(best_y <= 1.05 * y_min,
+          f"path G: the best measured y {best_y:.4f} within 1.05x of the "
+          f"planning table's minimum {y_min:.4f}")
+
+    # (d) fleet_chains at a fleet's size, per-tenant tables and penalties
+    rng = np.random.default_rng(0)
+    table = np.zeros(enc.size())          # the exhaustive plan's table
+    for s, y in plans["exhaustive"][2].items():
+        table[np.ravel_multi_index(s, enc.shape)] = y
+    T, S = G_TENANTS, G_FLEET_STEPS
+    tables = (table[None, :] * rng.uniform(0.8, 1.25, (T, 1))
+              + rng.normal(0.0, 1.0, (T, enc.size()))).astype(np.float32)
+    extra = rng.uniform(0.0, 5.0, (T, enc.size())).astype(np.float32)
+    taus = np.broadcast_to(rng.uniform(0.5, 2.0, (T, 1)), (T, S)) \
+        .astype(np.float32)
+    inits = np.stack([rng.integers(0, n, T) for n in enc.shape],
+                     -1).astype(np.int32)
+    kw = dict(shape=enc.shape, categorical=enc.categorical, device="cuda")
+    t1 = time.perf_counter()
+    with capture_walk(ops, captured, "fleet_chains bucket"):
+        padded = fleet_chains(generator(0, device=dev), tables, None, taus,
+                              inits, extra, **kw)
+    torch.cuda.synchronize()
+    timing["fleet_s"] = time.perf_counter() - t1
+    launches = dict(ops.LAUNCHES)
+    flat = fleet_chains(generator(0, device=dev), tables, None, taus, inits,
+                        extra, bucket=False, **kw)
+    torch.cuda.synchronize()
+    P = captured["fleet_chains bucket"][0][3].shape[0]
+    print(f"path G fleet_chains: {T} tenants padded to {P} x {S} steps in "
+          f"{timing['fleet_s'] * 1e3:.2f} ms (first call); accept rate "
+          f"{float(padded[2].float().mean()):.3f}")
+    check(P == 1024 and all(a.shape[0] == T and torch.equal(a, b)
+                            for a, b in zip(padded, flat)),
+          f"path G fleet_chains: rows 0..{T - 1} of the {P}-chain bucket "
+          f"bit-equal to the unpadded walk")
+    timing["total_s"] = time.perf_counter() - t0
+    print(f"path G: launches {launches}; {timing['total_s']:.1f} s")
+    return launches, timing
+
+
+#: Bytes the card's memory moves at once (an L2 sector).
+SECTOR = 32
+
+
+def walk_reads(torch, args, kw, out) -> dict:
+    """The bytes one walk needed of its table, extra rows and valid mask,
+    found from its own inputs and outputs: each step's proposal is
+    ``propose_nd`` of the state before it, the table (and the extra rows)
+    are read at the starting states and the proposals, the mask at least
+    at the accepted proposals.  Counted as distinct 32-byte sectors, the
+    least the card's memory moves.  Checks that the kernel's objectives
+    are the table's entries at those proposals (a noise-free walk), so
+    the count follows the walk that ran."""
+    from repro_torch.core.neighborhood import propose_nd, row_major_strides
+
+    inits, table, _, axis, up, pick, _ = args
+    states, ys, accepts = out
+    C, S = axis.shape
+    shape, size, dev = kw["shape"], table.shape[-1], axis.device
+    x = torch.cat([inits[:, None], states[:, :-1]], 1).long()
+    z = propose_nd(x.reshape(C * S, len(shape)), axis.reshape(-1),
+                   up.reshape(-1), pick.reshape(-1),
+                   torch.tensor(shape, device=dev),
+                   torch.tensor(kw["categorical"], device=dev))
+    strides = torch.tensor(row_major_strides(shape), device=dev)
+    zi = (z * strides).sum(-1).reshape(C, S)
+    x0 = (inits.long() * strides).sum(-1)
+    c = torch.arange(C, device=dev)[:, None]
+    t = torch.arange(S, device=dev)[None]
+    tab_time = size if kw.get("dynamic") else 0
+    tab_chain = (S * tab_time or size) if kw.get("per_chain") else 0
+
+    def sectors(idx, itemsize):
+        return SECTOR * int(torch.unique(
+            idx.reshape(-1) * itemsize // SECTOR).numel())
+
+    at_step = c * tab_chain + t * tab_time + zi
+    reads = dict(table=sectors(torch.cat([c[:, 0] * tab_chain + x0,
+                                          at_step.reshape(-1)]), 4),
+                 extra=0, valid=0)
+    want = table.reshape(-1)[at_step]
+    if kw.get("extra") is not None:
+        reads["extra"] = sectors(torch.cat([c[:, 0] * size + x0,
+                                            (c * size + zi).reshape(-1)]), 4)
+        want = want + kw["extra"].reshape(-1)[c * size + zi]
+    if kw.get("valid") is not None:
+        reads["valid"] = sectors(zi[accepts], 1)
+    if not kw.get("noise_std", 0.0) > 0:
+        check(bool(((ys == want) | (ys.isnan() & want.isnan())).all()),
+              f"anneal_walk ({walk_shape(args)}): its objectives are the "
+              f"table's entries at the proposals counted for its bound")
+    return reads
+
+
+def dependent_load_ns(torch, build, footprint: int,
+                      n_timed: int = 1 << 16) -> float:
+    """Nanoseconds of one global load whose address is the load before
+    it, when the loads wander over ``footprint`` bytes: one thread chases
+    a random single cycle through the footprint's 32-byte sectors
+    (``kernels/probes/dependent_load.cu``); a chase of one pass plus
+    ``n_timed`` loads less one of the pass alone (which warms the
+    caches), over ``n_timed``.  Warm, so the least such a load takes at
+    that footprint."""
+    import ctypes
+
+    fn = build.library("dependent_load").dependent_load_chase
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    words = SECTOR // 4
+    m = max(footprint // SECTOR, 2)
+    order = torch.randperm(m, generator=torch.Generator().manual_seed(0))
+    nxt = torch.zeros(m * words, dtype=torch.int32)
+    nxt[order * words] = (order.roll(-1) * words).to(torch.int32)
+    nxt = nxt.cuda()
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+
+    def chase(steps):
+        err = fn(nxt.data_ptr(), steps, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"dependent_load_chase: cudaError_t {err}")
+
+    t_pass = time_ms(torch, lambda: chase(m), 5)
+    t_more = time_ms(torch, lambda: chase(m + n_timed), 5)
+    return (t_more - t_pass) * 1e6 / n_timed
+
+
+def time_walk(torch, ops, ref, build, captured) -> list[dict]:
+    """``anneal_walk`` at path A's round, Fig. 4's sweep and
+    ``fleet_chains``' bucket, on the inputs those paths gave it, each with
+    a cold L2: kernel, plain version, its bound (the bytes: draws,
+    temperatures and starts read once, the table's, extra rows' and
+    mask's sectors that the walk looked up (``walk_reads``), states,
+    objectives and flags written once; about 20 float32 operations a
+    step), its latency bound (S dependent table loads, each at least the
+    chase's time over the table bytes it read) and the time of its first
+    chain alone (``chain_ms``: the S dependent steps the kernel cannot
+    overlap)."""
+    rows = []
+    for label, iters, plain_iters in (("path A round", 200, 10),
+                                      ("Fig. 4 sweep", 20, 2),
+                                      ("fleet_chains bucket", 200, 10)):
+        args, kw = captured[label]
+        inits, _, _, axis = args[:4]
+        C, S = axis.shape
+        ndim = inits.shape[1]
+        reads = walk_reads(torch, args, kw, ops.anneal_walk(*args, **kw))
+        footprint = reads["table"] + reads["extra"]
+        ns = dependent_load_ns(torch, build, footprint)
+        nbytes = (4 * inits.numel() + footprint + reads["valid"]
+                  + 25 * C * S + C * S * (4 * ndim + 5))
+        if kw.get("noise_std", 0.0) > 0:
+            nbytes += 4 * C * (S + 1)
+        one = [a[:1] for a in args]
+        if not kw.get("per_chain"):
+            one[1] = args[1]
+        kw1 = {k: (v[:1] if k in ("extra", "noise", "noise0")
+                   and v is not None else v) for k, v in kw.items()}
+        rows.append(dict(
+            name="anneal_walk", label=label, shape=walk_shape(args),
+            ms=time_cold_ms(torch, lambda: ops.anneal_walk(*args, **kw),
+                            iters),
+            plain_ms=time_cold_ms(torch, lambda: ref.anneal_walk_ref(
+                *args, **kw), plain_iters, warm=1),
+            chain_ms=time_cold_ms(torch, lambda: ops.anneal_walk(
+                *one, **kw1), iters),
+            library_ms=None, latency_bound_ms=S * ns * 1e-6,
+            dep_load_ns=ns, table_bytes=footprint,
+            **bound(nbytes, 20 * C * S, FP32_OPS_PER_S)))
+    for row in rows:
+        print_row(row)
+        lat = row["latency_bound_ms"]
+        held = max(lat, row["bound_ms"])
+        by = "latency" if lat > row["bound_ms"] else row["bound_by"]
+        print(f"anneal_walk {row['label']}: latency bound {lat:.4f} ms "
+              f"({row['dep_load_ns']:.2f} ns a dependent load over "
+              f"{row['table_bytes']} B of table); the larger bound "
+              f"{held:.4f} ms ({by}), {held / row['ms']:.4f} of the "
+              f"kernel's time; one chain "
+              f"alone {row['chain_ms']:.4f} ms, "
+              f"{row['chain_ms'] / row['ms']:.4f} of the walk's time")
+    return rows
+
+
 def bound(nbytes: float, nops: float, peak_ops: float) -> dict:
     """The least time for moving ``nbytes`` and doing ``nops`` on the
     card, and which of the two bounds it."""
@@ -1408,11 +1879,11 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels import build, ops, ref
 
     t0 = time.perf_counter()
-    build.build_all()
+    build.build_all(tuple(build.SOURCES) + tuple(build.PROBES))
     build_s = time.perf_counter() - t0
     print(f"built {sorted(build.build_log)} in {build_s:.2f} s (parallel)")
-    check(set(build.build_log) == set(build.SOURCES),
-          "every kernel source was built in this run")
+    check(set(build.build_log) == set(build.SOURCES) | set(build.PROBES),
+          "every kernel source and probe was built in this run")
     for name, (secs, log) in sorted(build.build_log.items()):
         print(f"  {name}: nvcc {secs:.2f} s")
         for line in log.splitlines():
@@ -1496,18 +1967,27 @@ def main(argv: list[str]) -> int:
     sched = ms.DriftingMix(MIX_DAY, MIX_EVENING, change_at=change_at)
     ctrl_a = sz.SizingController(small, sched, steps_per_round=64,
                                  n_chains=16, seed=0, device="cuda")
+    captured = {}                 # inputs the paths gave anneal_walk
     torch.cuda.synchronize()
     ops.reset_launches()
     round_s_a = []
     ds_a = []
-    for _ in range(n_a):
+    walks_a = []
+    for r in range(n_a):
+        n0 = ops.LAUNCHES["anneal_walk"]
         t0 = time.perf_counter()
-        ds_a.append(ctrl_a.round())
+        with capture_walk(ops, captured, "path A round"):
+            ds_a.append(ctrl_a.round())
         torch.cuda.synchronize()
         round_s_a.append(time.perf_counter() - t0)
+        walks_a.append(ops.LAUNCHES["anneal_walk"] - n0)
     launches_a = dict(ops.LAUNCHES)
     print(f"path A: {small.space.size():,} states, {n_a} rounds, launches "
-          f"{launches_a}, round wall s {[round(s, 4) for s in round_s_a]}")
+          f"{launches_a}, round wall s {[round(s, 4) for s in round_s_a]}, "
+          f"anneal_walk launches per round {walks_a}")
+    check(walks_a == [1] * n_a,
+          "path A: one anneal_walk launch per round (its one anneal_fleet "
+          "call)")
     for d in ds_a:
         print(f"  round {d.n:2d} y {d.y:.6f} $/hr {d.usd_per_hr:.3f} "
               f"slo {d.slo_attainment:.3f} cores {d.config.total_cores}"
@@ -1539,17 +2019,25 @@ def main(argv: list[str]) -> int:
     ops.reset_launches()
     round_s_b = []
     ds_b = []
+    walks_b = []
     for _ in range(n_b):
+        n0 = ops.LAUNCHES["anneal_walk"]
         t0 = time.perf_counter()
-        ds_b.append(ctrl_b.round())
+        with capture_walk(ops, captured, "path B round"):
+            ds_b.append(ctrl_b.round())
         torch.cuda.synchronize()
         round_s_b.append(time.perf_counter() - t0)
+        walks_b.append(ops.LAUNCHES["anneal_walk"] - n0)
     launches_b = dict(ops.LAUNCHES)
     builds = len(ctrl_b._tables)
     per_build = -(-large.space.size() // 8192)
     print(f"path B: {large.space.size():,} states, {n_b} rounds, "
           f"{builds} table build(s), launches {launches_b}, round wall s "
-          f"{[round(s, 4) for s in round_s_b]}, measures {src_b.counts()}")
+          f"{[round(s, 4) for s in round_s_b]}, measures {src_b.counts()}, "
+          f"anneal_walk launches per round {walks_b}")
+    check(walks_b == [1] * n_b,
+          "path B: one anneal_walk launch per round (its one anneal_fleet "
+          "call)")
     for d in ds_b:
         print(f"  round {d.n:2d} y {d.y:.6f} $/hr {d.usd_per_hr:.3f} "
               f"slo {d.slo_attainment:.3f}")
@@ -1571,6 +2059,14 @@ def main(argv: list[str]) -> int:
         profile_rounds(torch, ctrl_b, 2, "path B (table cached)",
                        1e3 * sum(round_s_b[1:]) / (n_b - 1))
         profile_table_build(torch, ctrl_b)
+
+    # -- 5b. path G: the paper's procurement loop ---------------------------
+    t_g = time.perf_counter()
+    records["anneal_walk"] = {"max_abs_err": check_walk_kernel(
+        torch, ops, ref, dev, captured)}
+    launches_g, timing_g = path_g(torch, ops, dev, captured)
+    print(f"path G with its kernel checks: "
+          f"{time.perf_counter() - t_g:.1f} s")
 
     # -- 6. paths C, E, F: the annealed serve loop at full size ------------
     from repro_torch.configs import get_config
@@ -1666,24 +2162,29 @@ def main(argv: list[str]) -> int:
     attn_rows = time_attention(torch, ops, ref, dev)
     train_rows = time_training_kernels(torch, ops, ref, dev)
     rec_rows = time_recurrent(torch, ops, ref, dev, xq_b, xm_b)
+    walk_rows = time_walk(torch, ops, ref, build, captured)
+    timed = attn_rows + train_rows + rec_rows + walk_rows
     for name in ("flash_attention", "flash_decode", "quantize_int8",
                  "flash_attention_bwd", "rglru_scan", "wkv6",
-                 "pairwise_sqdist"):
+                 "pairwise_sqdist", "anneal_walk"):
         # the path shape: path C's prefill and step, embed gradient, path
-        # D, path E's and F's prefills, path B's grid chunk
-        row = next(r for r in attn_rows + train_rows + rec_rows
-                   if r["name"] == name)
+        # D, path E's and F's prefills, path B's grid chunk, path A's round
+        row = next(r for r in timed if r["name"] == name)
         records[name].update({k: row[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        records[name]["shapes"] = record_rows(
-            attn_rows + train_rows + rec_rows, name)
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "latency_bound_ms") if k in row})
+        records[name]["shapes"] = record_rows(timed, name)
     print(f"path A mean round {sum(round_s_a[1:]) / (n_a - 1):.4f} s "
           f"(rounds 1-{n_a - 1}), path B round 0 (table build) "
           f"{round_s_b[0]:.3f} s, later rounds "
           f"{sum(round_s_b[1:]) / max(n_b - 1, 1):.4f} s; path D step "
           f"{train_timing['step_ms']:.2f} ms (median), train "
           f"{train_timing['train_s']:.1f} s, anneal "
-          f"{train_timing['anneal_s']:.1f} s")
+          f"{train_timing['anneal_s']:.1f} s; path G "
+          f"{timing_g['total_s']:.1f} s (figures {timing_g['figures_s']:.1f}"
+          f" s, plans {timing_g['plan_exhaustive_s']:.3f} and "
+          f"{timing_g['plan_surrogate_s']:.3f} s, {G_SUBMITS} jobs "
+          f"{timing_g['submits_s']:.3f} s)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- 10. the record lines -------------------------------------------------
@@ -1720,6 +2221,11 @@ def main(argv: list[str]) -> int:
         # at path B's shapes, never launched by a main path
         "pairwise_sqdist": ("src/repro_torch/kernels/csrc/pairwise_sqdist.cu",
                             "src/repro/kernels/surrogate_distance.py:72", 0),
+        "anneal_walk": ("src/repro_torch/kernels/csrc/anneal_walk.cu",
+                        "src/repro/core/annealing.py:447 (_chain_nd_core, "
+                        "lax.scan; not a pallas_call)",
+                        launches_a["anneal_walk"] + launches_b["anneal_walk"]
+                        + launches_g["anneal_walk"]),
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():
@@ -1731,6 +2237,8 @@ def main(argv: list[str]) -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
+            **({"latency_bound_ms": rec["latency_bound_ms"]}
+               if "latency_bound_ms" in rec else {}),
             "shapes": rec.get("shapes", [])})
     print(json.dumps({"kernels": kernels}))
     print(card_line())

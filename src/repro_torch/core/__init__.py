@@ -1,17 +1,37 @@
 # The paper's primary contribution — online cluster resource management by
 # simulated annealing — ported to PyTorch.  This slice carries the
-# container-sizing control loop end to end; ROADMAP.md lists what waits.
+# container-sizing loop and the single-tenant procurement loop end to end;
+# ROADMAP.md lists what waits.
 from .annealing import (
     DRAW_KEYS,
     Annealer,
     ChainSnapshot,
     Step,
     acceptance_probability,
+    anneal_chain,
+    anneal_chain_dynamic,
+    anneal_chain_nd,
     anneal_fleet,
     chain_accept_stats,
+    chain_bucket,
+    first_hit_time,
+    fleet_chains,
+    jobs_to_min_vs_tau,
+    jobs_to_min_vs_tau_fleet,
     random_valid_states,
 )
 from .change_detect import BatchedPageHinkley, PageHinkley, WindowedZScore
+from .evalpipe import (
+    EvalDispatcher,
+    EvalRequest,
+    EvalResult,
+    PipelineStats,
+    ResolvedStep,
+    SpeculativePipeline,
+    StorePredictor,
+    map_pool,
+    measure_requests,
+)
 from .costmodel import (
     Evaluator,
     MeasuredEvaluator,
@@ -56,7 +76,15 @@ from .pricing import (
     ServiceCatalog,
     interpolated_family,
 )
-from .procurement import ControllerMixin, Decision
+from .procurement import (
+    ControllerMixin,
+    Decision,
+    ProcurementController,
+    default_adaptive_schedule,
+    make_ec2_space,
+    make_tpu_space,
+    offline_plan,
+)
 from .schedules import (
     AdaptiveReheat,
     FixedTemperature,
@@ -90,15 +118,22 @@ from .surrogate import (
     SpaceEncoding,
     SurrogateModel,
     SurrogateSource,
+    expected_improvement,
     host_interp,
+    window_space,
 )
 from .tabu import TabuMemory
 
 __all__ = [
     "DRAW_KEYS", "Annealer", "ChainSnapshot", "Step",
-    "acceptance_probability", "anneal_fleet", "chain_accept_stats",
-    "random_valid_states",
+    "acceptance_probability", "anneal_chain", "anneal_chain_dynamic",
+    "anneal_chain_nd", "anneal_fleet", "chain_accept_stats", "chain_bucket",
+    "first_hit_time", "fleet_chains", "jobs_to_min_vs_tau",
+    "jobs_to_min_vs_tau_fleet", "random_valid_states",
     "BatchedPageHinkley", "PageHinkley", "WindowedZScore",
+    "EvalDispatcher", "EvalRequest", "EvalResult", "PipelineStats",
+    "ResolvedStep", "SpeculativePipeline", "StorePredictor",
+    "map_pool", "measure_requests",
     "Evaluator", "MeasuredEvaluator", "RooflineEvaluator",
     "SimulatedEvaluator", "StepCosts", "objective_of",
     "BLEND_AFTER", "BLEND_BEFORE", "HIBENCH_JOBS", "JobModel",
@@ -110,7 +145,9 @@ __all__ = [
     "blend_from_weights",
     "EC2_CATALOG", "EC2_CATALOG_ADJUSTED", "TPU_CATALOG", "CapacityError",
     "InstanceFamily", "ServiceCatalog", "interpolated_family",
-    "ControllerMixin", "Decision",
+    "ControllerMixin", "Decision", "ProcurementController",
+    "default_adaptive_schedule", "make_ec2_space", "make_tpu_space",
+    "offline_plan",
     "AdaptiveReheat", "FixedTemperature", "GeometricCooling", "LogCooling",
     "Schedule", "schedule_to_array",
     "MicroserviceEvaluator", "SizingController", "SizingDecision",
@@ -119,7 +156,8 @@ __all__ = [
     "ClusterConfig", "ConfigSpace", "Dimension", "EncodedSpace",
     "cluster_config_from",
     "ExhaustiveSource", "MeasurementStore", "ObjectiveSource",
-    "SpaceEncoding", "SurrogateModel", "SurrogateSource", "host_interp",
+    "SpaceEncoding", "SurrogateModel", "SurrogateSource",
+    "expected_improvement", "host_interp", "window_space",
     "TabuMemory",
 ]
 

@@ -16,11 +16,16 @@ i.e. always accepted when the objective does not increase.  Two engines:
 * :func:`anneal_fleet` — the batched chain over a precomputed objective
   table on a full N-dimensional :class:`ConfigSpace` (mixed
   ordinal/categorical axes, validity masks, time-indexed tables, array
-  temperature schedules with reheats): C chains walk together as one
-  vectorised torch step, with a Python loop over the steps.  Its random
-  draws come from an explicit :class:`torch.Generator`, or are handed in
-  whole through ``draws=`` (the tests replay another engine's draws so the
-  walks can be compared step for step).
+  temperature schedules with reheats): C chains walk every step in one
+  :func:`repro_torch.kernels.ops.anneal_walk` call (a hand kernel on the
+  card, its plain torch version on the CPU).  Its random draws come from
+  an explicit :class:`torch.Generator`, or are handed in whole through
+  ``draws=`` (the tests replay another engine's draws so the walks can be
+  compared step for step).  :func:`anneal_chain`,
+  :func:`anneal_chain_dynamic` and :func:`anneal_chain_nd` are its
+  one-chain forms, :func:`fleet_chains` its bucket-padded per-tenant form,
+  and :func:`jobs_to_min_vs_tau` / :func:`jobs_to_min_vs_tau_fleet` the
+  paper's Fig. 4 / Fig. 10 sweeps over it.
 """
 
 from __future__ import annotations
@@ -34,12 +39,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .neighborhood import (
-    Neighborhood,
-    flat_index,
-    propose_nd,
-    row_major_strides,
-)
+from ..kernels import ops
+from .neighborhood import Neighborhood, row_major_strides
 from .schedules import FixedTemperature, Schedule
 from .state import ConfigSpace, EncodedSpace, random_valid_state
 from .tabu import TabuMemory
@@ -71,10 +72,10 @@ class ChainSnapshot:
     """Replayable checkpoint of an online :class:`Annealer` at a transition
     index: the incumbent, its stored (possibly unmeasured) objective, and
     the full bit-generator state.  Restoring one rewinds the *walk* — the
-    speculative evaluation pipeline (:mod:`repro.core.evalpipe`) runs the
-    chain ahead of landed measurements and rolls back to the last resolved
-    transition on a misprediction, which is what keeps a pipelined run's
-    realized RNG stream identical to the serial loop's."""
+    speculative evaluation pipeline (:mod:`repro_torch.core.evalpipe`)
+    runs the chain ahead of landed measurements and rolls back to the last
+    resolved transition on a misprediction, which is what keeps a
+    pipelined run's realized RNG stream identical to the serial loop's."""
 
     n: int
     state: tuple[int, ...]
@@ -412,62 +413,46 @@ def anneal_fleet(
                 f"extra_costs shape {tuple(extra.shape)} != "
                 f"{(C,) + enc.shape} (or its flattened form)")
 
-    noisy = noise_std > 0.0
-    if draws is None:
-        d = _draw(generator, enc, C, S, noisy, dev)
-    else:
-        keys = DRAW_KEYS + (("noise", "noise0") if noisy else ())
-        d = {k: torch.as_tensor(draws[k], device=dev) for k in keys}
-        for k in DRAW_KEYS + (("noise",) if noisy else ()):
-            if tuple(d[k].shape) != (C, S):
-                raise ValueError(f"draws[{k!r}] shape {tuple(d[k].shape)} "
-                                 f"!= {(C, S)}")
-        d["axis"] = d["axis"].to(torch.int64)
-        d["up"] = d["up"].to(torch.bool)
-        d["pick"] = d["pick"].to(torch.int64)
-        d["uniform"] = d["uniform"].to(torch.float32)
-        if noisy:
-            d["noise"] = d["noise"].to(torch.float32)
-            d["noise0"] = d["noise0"].to(torch.float32)
-
-    sizes = torch.tensor(enc.shape, dtype=torch.int64, device=dev)
-    categorical = torch.tensor(enc.categorical, dtype=torch.bool, device=dev)
-    rows = torch.arange(C, device=dev)
-
-    def lookup(t, zi):
-        y_now = y_flat[:, t] if (dynamic and per_chain_tables) else (
-            y_flat[t] if dynamic else y_flat)
-        v = y_now[rows, zi] if per_chain_tables else y_now[zi]
-        if extra is not None:
-            v = v + extra[rows, zi]
-        return v
-
-    x = inits.to(torch.int64)
-    y_x = lookup(0, flat_index(x, enc.shape))
-    if noisy:
-        y_x = y_x + noise_std * d["noise0"]
-    states = torch.empty((C, S, enc.ndim), dtype=torch.int32, device=dev)
-    ys = torch.empty((C, S), dtype=torch.float32, device=dev)
-    accepts = torch.empty((C, S), dtype=torch.bool, device=dev)
-    for t in range(S):
-        z = propose_nd(x, d["axis"][:, t], d["up"][:, t], d["pick"][:, t],
-                       sizes, categorical)
-        zi = flat_index(z, enc.shape)
-        y_z = lookup(t, zi)
-        if noisy:
-            y_z = y_z + noise_std * d["noise"][:, t]
-        dy = y_z - y_x
-        p = torch.exp(-torch.clamp(dy, min=0.0) / taus_b[:, t])
-        acc = d["uniform"][:, t] < p
-        if valid_flat is not None:
-            acc = acc & valid_flat[zi]
-        x = torch.where(acc[:, None], z, x)
-        y_x = torch.where(acc, y_z, y_x)
-        states[:, t] = x
-        ys[:, t] = y_z
-        accepts[:, t] = acc
+    d = (_draw(generator, enc, C, S, noise_std > 0.0, dev) if draws is None
+         else _given_draws(draws, C, S, noise_std > 0.0, dev))
+    states, ys, accepts = _walk(enc.shape, enc.categorical, valid_flat,
+                                y_flat, taus_b, inits, extra, d,
+                                dynamic=dynamic, per_chain=per_chain_tables,
+                                noise_std=noise_std)
     return {"states": states, "ys": ys, "accepts": accepts,
             "inits": inits}
+
+
+def _given_draws(draws: Mapping[str, Any], C: int, S: int, noisy: bool,
+                 dev: torch.device) -> dict[str, torch.Tensor]:
+    """``draws=`` as the walk takes them: on ``dev``, in the kernel's
+    dtypes, each checked against (C, S) (``noise0`` against (C,))."""
+    keys = DRAW_KEYS + (("noise", "noise0") if noisy else ())
+    types = {"axis": torch.int64, "up": torch.bool, "pick": torch.int64,
+             "uniform": torch.float32, "noise": torch.float32,
+             "noise0": torch.float32}
+    d = {k: torch.as_tensor(draws[k], device=dev).to(types[k]).contiguous()
+         for k in keys}
+    for k in keys:
+        want = (C,) if k == "noise0" else (C, S)
+        if tuple(d[k].shape) != want:
+            raise ValueError(f"draws[{k!r}] shape {tuple(d[k].shape)} "
+                             f"!= {want}")
+    return d
+
+
+def _walk(shape, categorical, valid_flat, y_flat, taus_b, inits, extra, d,
+          *, dynamic: bool, per_chain: bool, noise_std: float):
+    """One :func:`repro_torch.kernels.ops.anneal_walk` call: the kernel on
+    the card, its plain version on the CPU."""
+    noisy = noise_std > 0.0
+    return ops.anneal_walk(
+        inits.contiguous(), y_flat.contiguous(), taus_b.contiguous(),
+        d["axis"], d["up"], d["pick"], d["uniform"], shape=tuple(shape),
+        categorical=tuple(categorical), dynamic=dynamic, per_chain=per_chain,
+        extra=None if extra is None else extra.contiguous(),
+        valid=valid_flat, noise=d["noise"] if noisy else None,
+        noise0=d["noise0"] if noisy else None, noise_std=float(noise_std))
 
 
 def chain_accept_stats(
@@ -514,3 +499,304 @@ def chain_accept_stats(
     return tau_at, np.where(has, p, np.nan)
 
 
+
+
+# ---------------------------------------------------------------------------
+# One-chain forms of the engine (the paper's illustrative figures).
+# ---------------------------------------------------------------------------
+
+
+def _line(n: int) -> EncodedSpace:
+    """The 1-D ordinal space of an ``n``-state landscape."""
+    return EncodedSpace((int(n),), (False,))
+
+
+def _one_chain(draws: Mapping[str, Any] | None) -> dict[str, Any] | None:
+    """One chain's draws, (n_steps,) each and ``noise0`` a scalar, as the
+    fleet's (1, n_steps) and (1,)."""
+    if draws is None:
+        return None
+    return {k: torch.as_tensor(v).reshape((1,) if k == "noise0" else (1, -1))
+            for k, v in draws.items()}
+
+
+def _tau_row(tau, n_steps: int, dev: torch.device) -> torch.Tensor:
+    """A scalar or (n_steps,) temperature as one chain's (1, n_steps)."""
+    t = torch.as_tensor(tau, dtype=torch.float32, device=dev)
+    return torch.broadcast_to(t, (n_steps,))[None, :]
+
+
+def anneal_chain(
+    generator: torch.Generator | None,
+    y_table: torch.Tensor | np.ndarray,
+    n_steps: int,
+    tau: torch.Tensor | np.ndarray | float,
+    init: int = 0,
+    noise_std: float = 0.0,
+    draws: Mapping[str, Any] | None = None,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One annealing chain on a 1-D landscape ``y_table`` (S,) with +-1
+    moves, reflected at the ends (paper Figs. 2-3).
+
+    ``tau`` is a scalar or (n_steps,) temperatures; ``noise_std`` adds a
+    standard normal times it to every measurement, the initial one
+    included (jobs are stochastic).  ``draws``: the chain's random numbers
+    in :data:`DRAW_KEYS` form, (n_steps,) each (``axis`` all 0; ``pick``
+    unread), plus ``"noise"`` (n_steps,) and ``"noise0"`` (a scalar) when
+    ``noise_std > 0``.  Returns ``(states, ys, accepts)``, each
+    (n_steps,), on ``device``.
+    """
+    dev = resolve_device(device)
+    y = torch.as_tensor(y_table, dtype=torch.float32, device=dev)
+    out = anneal_fleet(generator, _line(y.shape[0]), y, n_steps,
+                       _tau_row(tau, n_steps, dev), inits=[int(init)],
+                       n_chains=1, noise_std=noise_std,
+                       draws=_one_chain(draws), device=dev)
+    return out["states"][0, :, 0], out["ys"][0], out["accepts"][0]
+
+
+def anneal_chain_dynamic(
+    generator: torch.Generator | None,
+    y_tables: torch.Tensor | np.ndarray,
+    n_steps: int,
+    tau: torch.Tensor | np.ndarray | float,
+    init: int = 0,
+    draws: Mapping[str, Any] | None = None,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`anneal_chain` on a time-indexed landscape ``y_tables``
+    (n_steps, S) (paper Fig. 5), without noise.
+
+    The incumbent's stored objective, ``y_tables[0, init]`` at the start,
+    goes stale after a change; it is refreshed only when the incumbent is
+    re-measured, exactly as in the online algorithm (proposals are
+    measured on the *current* landscape)."""
+    dev = resolve_device(device)
+    y = torch.as_tensor(y_tables, dtype=torch.float32, device=dev)
+    out = anneal_fleet(generator, _line(y.shape[1]), y, n_steps,
+                       _tau_row(tau, n_steps, dev), inits=[int(init)],
+                       n_chains=1, draws=_one_chain(draws), device=dev)
+    return out["states"][0, :, 0], out["ys"][0], out["accepts"][0]
+
+
+def _default_init(enc: EncodedSpace) -> np.ndarray:
+    if enc.valid_mask is None:
+        return np.zeros(enc.ndim, np.int32)
+    flat = enc.valid_mask.reshape(-1)
+    first = int(np.argmax(flat))
+    if not flat[first]:
+        raise ValueError("space has no valid states")
+    return np.asarray(np.unravel_index(first, enc.shape), np.int32)
+
+
+def anneal_chain_nd(
+    generator: torch.Generator | None,
+    space: ConfigSpace | EncodedSpace,
+    y_table: torch.Tensor | np.ndarray,
+    n_steps: int,
+    tau: torch.Tensor | np.ndarray | float,
+    init: Sequence[int] | None = None,
+    noise_std: float = 0.0,
+    draws: Mapping[str, Any] | None = None,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One chain over an N-dim ConfigSpace (the compiled online algorithm).
+
+    ``y_table`` has shape ``space.shape`` (static) or ``(n_steps,) +
+    space.shape`` (time-indexed); ``tau`` is a scalar or (n_steps,)
+    temperatures (:func:`repro_torch.core.schedules.schedule_to_array`
+    output traces reheat events); ``init`` defaults to the first valid
+    state.  ``draws`` as in :func:`anneal_chain`.  Returns ``(states
+    (n_steps, ndim), ys (n_steps,), accepts (n_steps,))`` on ``device``.
+    """
+    dev = resolve_device(device)
+    enc = _as_encoded(space)
+    if init is None:
+        init = _default_init(enc)
+    out = anneal_fleet(generator, enc, y_table, n_steps,
+                       _tau_row(tau, n_steps, dev),
+                       inits=np.asarray(init, np.int32), n_chains=1,
+                       noise_std=noise_std, draws=_one_chain(draws),
+                       device=dev)
+    return out["states"][0], out["ys"][0], out["accepts"][0]
+
+
+def first_hit_time(states: torch.Tensor,
+                   target: torch.Tensor | int) -> torch.Tensor:
+    """Index of the first visit to ``target`` along the last axis of
+    ``states`` (its length if never reached)."""
+    hits = states == target
+    n = states.shape[-1]
+    first = hits.to(torch.uint8).argmax(-1)
+    return torch.where(hits.any(-1), first, torch.full_like(first, n))
+
+
+def jobs_to_min_vs_tau(
+    generator: torch.Generator | None,
+    y_table: torch.Tensor | np.ndarray,
+    taus: Sequence[float],
+    n_seeds: int = 64,
+    n_steps: int = 2000,
+    init: int | None = None,
+    draws: Sequence[Mapping[str, Any]] | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """Paper Fig. 4 / Fig. 10: #jobs until the global minimum of a 1-D
+    landscape is selected, vs temperature, with +-2 sample std bars over
+    seeds: one batched call of ``n_seeds`` chains per temperature.
+
+    ``draws``: one :func:`anneal_fleet` draws dict per temperature, each
+    (n_seeds, n_steps)."""
+    dev = resolve_device(device)
+    y = torch.as_tensor(y_table, dtype=torch.float32, device=dev)
+    target = int(torch.argmin(y))
+    enc = _line(y.shape[0])
+    means, stds, raw = [], [], []
+    for i, tau in enumerate(taus):
+        out = anneal_fleet(generator, enc, y, n_steps, float(tau),
+                           inits=[0 if init is None else int(init)],
+                           n_chains=n_seeds,
+                           draws=None if draws is None else draws[i],
+                           device=dev)
+        hits = first_hit_time(out["states"][..., 0], target).cpu().numpy()
+        means.append(hits.mean())
+        stds.append(hits.std(ddof=1))
+        raw.append(hits)
+    return {
+        "taus": np.asarray(taus, np.float64),
+        "mean_jobs": np.asarray(means),
+        "std_jobs": np.asarray(stds),
+        "raw": np.stack(raw),
+    }
+
+
+def jobs_to_min_vs_tau_fleet(
+    generator: torch.Generator | None,
+    space: ConfigSpace | EncodedSpace,
+    y_table: torch.Tensor | np.ndarray,
+    taus: Sequence[float],
+    n_seeds: int = 64,
+    n_steps: int = 2000,
+    init: Sequence[int] | None = None,
+    target: Sequence[int] | None = None,
+    draws: Mapping[str, Any] | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """Fig. 4 / Fig. 10 sweep through the batched engine: the whole
+    (temperature x seed) grid is ONE :func:`anneal_fleet` call on any
+    N-dim ConfigSpace, chain ``i * n_seeds + s`` at ``taus[i]``; only the
+    first-hit times come back to the host."""
+    dev = resolve_device(device)
+    enc = _as_encoded(space)
+    y_np = np.asarray(y_table, np.float64)
+    if target is None:
+        masked = (y_np if enc.valid_mask is None
+                  else np.where(enc.valid_mask, y_np, np.inf))
+        target = np.unravel_index(int(np.argmin(masked)), enc.shape)
+    target = np.asarray(target, np.int32)
+
+    n_taus = len(taus)
+    n_chains = n_taus * n_seeds
+    taus_b = np.repeat(np.asarray(taus, np.float32), n_seeds)
+    inits = (None if init is None
+             else np.tile(np.asarray(init, np.int32), (n_chains, 1)))
+    out = anneal_fleet(generator, enc, y_np, n_steps, taus_b, inits=inits,
+                       n_chains=n_chains, draws=draws, device=dev)
+    hit = (out["states"] == torch.as_tensor(target, device=dev)).all(-1)
+    first = hit.to(torch.uint8).argmax(1)
+    hits = torch.where(hit.any(1), first, torch.full_like(first, n_steps))
+    hits = hits.cpu().numpy().reshape(n_taus, n_seeds)
+    return {
+        "taus": np.asarray(taus, np.float64),
+        "mean_jobs": hits.mean(1),
+        "std_jobs": hits.std(1, ddof=1),
+        "raw": hits,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Fleet-chain dispatch: the chain axis padded to a bucket (the per-tenant
+# path of the fleet controllers).
+# ---------------------------------------------------------------------------
+
+
+def chain_bucket(n: int, multiple: int = 1) -> int:
+    """Next power-of-two >= ``n``, rounded up to a ``multiple``.  The fleet
+    pads its chain axis to these buckets, so a churning tenant count
+    (arrivals and departures every round) walks a handful of chain-axis
+    sizes instead of a new one per fleet size."""
+    if n < 1:
+        raise ValueError("n must be >= 1")
+    p = 1
+    while p < n:
+        p *= 2
+    if multiple > 1 and p % multiple:
+        p = ((p + multiple - 1) // multiple) * multiple
+    return p
+
+
+def _pad_chains(a: torch.Tensor, p: int) -> torch.Tensor:
+    """Pad axis 0 from C to ``p`` by repeating row 0 (valid chain data —
+    the padding chains run and are sliced away; chains never read each
+    other's rows, so rows 0..C-1 are bit-identical)."""
+    pad = p - a.shape[0]
+    if pad == 0:
+        return a
+    return torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))])
+
+
+def fleet_chains(
+    generator: torch.Generator | None,
+    tables: torch.Tensor | np.ndarray,       # (C, size) float32, per-chain
+    valid_flat: torch.Tensor | np.ndarray | None,   # (size,) bool or None
+    taus: torch.Tensor | np.ndarray,         # (C, n_steps)
+    inits: torch.Tensor | np.ndarray,        # (C, ndim) int32
+    extra: torch.Tensor | np.ndarray | None,  # (C, size) or None
+    *,
+    shape: tuple[int, ...],
+    categorical: tuple,
+    noise_std: float = 0.0,
+    bucket: bool = True,
+    draws: Mapping[str, Any] | None = None,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run C per-chain-table fleet chains with the chain axis padded to
+    :func:`chain_bucket` (with ``bucket``).
+
+    The draws are made for the C true chains (from ``generator``, exactly
+    as :func:`anneal_fleet` makes them, or taken from ``draws``); then the
+    draws, tables, temperatures, initial states and extra rows are padded
+    alike by repeating chain 0, so rows 0..C-1 are bit-identical with and
+    without padding, and equal to ``anneal_fleet(per_chain_tables=True,
+    extra_costs=extra)`` from the same generator.  Returns ``(states,
+    ys, accepts)`` sliced back to the true C, on ``device``.
+    """
+    dev = resolve_device(device)
+    tab = torch.as_tensor(tables, dtype=torch.float32, device=dev)
+    C, size = tab.shape
+    taus_t = torch.as_tensor(taus, dtype=torch.float32, device=dev)
+    if taus_t.ndim != 2 or taus_t.shape[0] != C:
+        raise ValueError(f"taus shape {tuple(taus_t.shape)} != (C, n_steps) "
+                         f"with C = {C}")
+    S = taus_t.shape[1]
+    enc = EncodedSpace(tuple(shape), tuple(categorical))
+    if enc.size() != size:
+        raise ValueError(f"tables hold {size} states, shape {enc.shape} "
+                         f"{enc.size()}")
+    init_t = torch.as_tensor(inits, dtype=torch.int32, device=dev)
+    ext = (None if extra is None else
+           torch.as_tensor(extra, dtype=torch.float32, device=dev))
+    valid = (None if valid_flat is None else torch.as_tensor(
+        valid_flat, dtype=torch.bool, device=dev).reshape(-1))
+    noisy = noise_std > 0.0
+    d = (_draw(generator, enc, C, S, noisy, dev) if draws is None
+         else _given_draws(draws, C, S, noisy, dev))
+    P = chain_bucket(C) if bucket else C
+    d = {k: _pad_chains(v, P) for k, v in d.items()}
+    states, ys, accepts = _walk(
+        enc.shape, enc.categorical, valid, _pad_chains(tab, P),
+        _pad_chains(taus_t, P), _pad_chains(init_t, P),
+        None if ext is None else _pad_chains(ext, P), d, dynamic=False,
+        per_chain=True, noise_std=noise_std)
+    return states[:C], ys[:C], accepts[:C]

@@ -460,9 +460,7 @@ class SizingController(ControllerMixin):
 
     ``device`` (default ``"cuda"``) is where tables, chains and the top-K
     selection run; round ``r`` draws its randomness from a
-    :class:`torch.Generator` seeded from ``(seed, r)``.  ``eval_workers``
-    > 1 (a pool of measurement workers) waits for the port of the
-    evaluation runtime and raises :class:`NotImplementedError`.
+    :class:`torch.Generator` seeded from ``(seed, r)``.
     """
 
     def __init__(
@@ -488,11 +486,6 @@ class SizingController(ControllerMixin):
             raise ValueError("steps_per_round and n_chains must be >= 1")
         if measure_topk < 1:
             raise ValueError("measure_topk must be >= 1")
-        if eval_workers and eval_workers > 1:
-            raise NotImplementedError(
-                "eval_workers > 1 measures on the evaluation runtime's "
-                "worker pool (evalpipe.map_pool), which is not ported yet "
-                "(ROADMAP queue A, item 3: evalpipe)")
         self.device = resolve_device(device)
         self.spec = spec
         self.space = spec.space
@@ -833,7 +826,24 @@ class SizingController(ControllerMixin):
         rates: Mapping[str, float],
     ) -> "list[dict[str, Any]]":
         """Ground-truth host-model measurement of K candidate sizings, in
-        candidate order."""
+        candidate order.  With ``eval_workers`` > 1 the measurements run on
+        the evaluation runtime's bounded pool (the host model is pure
+        numpy and thread-safe); otherwise a plain ordered loop — the two
+        paths return identical results."""
+        if self.eval_workers and self.eval_workers > 1 and len(states) > 1:
+            from .evalpipe import EvalRequest, EvalResult, map_pool
+
+            def measure(req: EvalRequest) -> EvalResult:
+                res = self.spec.host_objective(req.decoded, rates)
+                return EvalResult(y=float(res["y"]), extra=res)
+
+            results = map_pool(
+                measure,
+                [EvalRequest(state=tuple(s), decoded=self.space.decode(s),
+                             job="mix", n=self._round, kind="round")
+                 for s in states],
+                max_workers=self.eval_workers)
+            return [dict(r.extra) for r in results]
         return [self.spec.host_objective(self.space.decode(s), rates)
                 for s in states]
 

@@ -34,6 +34,7 @@ Pieces (the slice of the reference module the sizing controller runs):
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -43,7 +44,7 @@ from ..device import resolve_device
 from ..kernels import ops as kernel_ops
 from .instrumentation import race_access
 from .landscape import tabulate
-from .state import ConfigSpace, EncodedSpace, random_valid_state
+from .state import ConfigSpace, Dimension, EncodedSpace, random_valid_state
 
 
 # ---------------------------------------------------------------------------
@@ -497,3 +498,60 @@ class SurrogateSource(ObjectiveSource):
         if valid_mask is not None:
             Y = np.where(np.asarray(valid_mask), Y, np.inf)
         return Y
+
+
+# ---------------------------------------------------------------------------
+# Windowed sub-spaces: nothing materialized scales with the full product.
+# ---------------------------------------------------------------------------
+
+
+def window_space(
+    space: ConfigSpace,
+    center: Sequence[int],
+    half_width: int = 6,
+) -> tuple[ConfigSpace, np.ndarray]:
+    """A sub-ConfigSpace around ``center``: ordinal axes keep a contiguous
+    ``2 * half_width + 1`` slice (clipped at the boundary without
+    shrinking, so window shapes — and the tables built on them — are
+    stable as the window moves), categorical axes keep every value.  The
+    validity
+    predicate carries over unchanged (it sees decoded values, which are
+    the same values).  Returns (sub_space, per-axis index offsets)."""
+    if half_width < 1:
+        raise ValueError("half_width must be >= 1")
+    dims, offs = [], []
+    for dim, c in zip(space.dimensions, center):
+        n = len(dim)
+        w = 2 * half_width + 1
+        if dim.kind == "categorical" or n <= w:
+            lo = 0
+            vals = dim.values
+        else:
+            lo = int(np.clip(int(c) - half_width, 0, n - w))
+            vals = dim.values[lo:lo + w]
+        offs.append(lo)
+        dims.append(Dimension(dim.name, tuple(vals), dim.kind))
+    return (ConfigSpace(tuple(dims), space.is_valid),
+            np.asarray(offs, np.int64))
+
+
+# ---------------------------------------------------------------------------
+# Acquisition scores: how the real-measurement budget is ranked.
+# ---------------------------------------------------------------------------
+
+
+def expected_improvement(
+    mean: np.ndarray, unc: np.ndarray, y_best: float
+) -> np.ndarray:
+    """EI under a Gaussian belief (minimization): ``s (z Phi(z) + phi(z))``
+    with ``z = (y_best - mean) / s`` and ``s`` the uncertainty channel
+    read as a standard deviation.  Exactly-measured states (``s = 0``)
+    get their deterministic improvement ``max(y_best - mean, 0)`` — no
+    exploration credit for what is already known."""
+    mean = np.asarray(mean, np.float64)
+    s = np.maximum(np.asarray(unc, np.float64), 1e-12)
+    z = (y_best - mean) / s
+    cdf = 0.5 * (1.0 + np.asarray([math.erf(v / math.sqrt(2.0))
+                                   for v in np.ravel(z)]).reshape(z.shape))
+    pdf = np.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
+    return s * (z * cdf + pdf)

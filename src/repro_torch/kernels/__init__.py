@@ -7,6 +7,7 @@ loader, ``csrc/`` the CUDA C++ sources.
 
 from .ops import (
     LAUNCHES,
+    anneal_walk,
     flash_attention,
     flash_attention_bwd,
     flash_attention_trainable,
@@ -20,7 +21,7 @@ from .ops import (
     wkv6,
 )
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_bwd",
-           "flash_attention_trainable", "flash_decode", "fused_interp",
+__all__ = ["LAUNCHES", "anneal_walk", "flash_attention",
+           "flash_attention_bwd", "flash_attention_trainable", "flash_decode", "fused_interp",
            "pairwise_sqdist", "quantize_int8", "reset_launches",
            "rglru_scan", "sizing_latency", "wkv6"]

@@ -1,11 +1,12 @@
 """Build the hand kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each source in ``csrc/`` has a plain C interface and builds on its own
-into a shared library under ``build/kernels/`` at the repository root
-(``REPRO_TORCH_BUILD_DIR`` overrides), named by a hash of the source,
-every local header it includes (``#include "..."``, followed through
-headers) and the flags, so an edited source or header is rebuilt and an
-unchanged one is loaded as it is.  Nothing is built when the package is imported: the first call
+Each source in ``csrc/`` (and each probe of the card in ``probes/``)
+has a plain C interface and builds on its own into a shared library
+under ``build/kernels/`` at the repository root (``REPRO_TORCH_BUILD_DIR``
+overrides), named by a hash of the source, every local header it
+includes (``#include "..."``, followed through headers) and the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded
+as it is.  Nothing is built when the package is imported: the first call
 that needs a kernel builds it, and :func:`build_all` builds every source
 at once, one ``nvcc`` per source, all started together.
 """
@@ -23,14 +24,16 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+_PROBES = Path(__file__).resolve().parent / "probes"
 
 _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Per-source extra flags.  No source uses --use_fast_math: parity with the
-#: plain versions needs IEEE division, expf and sqrtf.  sizing_latency and
-#: rglru_scan also turn off multiply-add contraction (see the notes in
-#: their sources): both are bit-equal to their plain versions.
+#: plain versions needs IEEE division, expf and sqrtf.  sizing_latency,
+#: rglru_scan and anneal_walk also turn off multiply-add contraction (see
+#: the notes in their sources): all three are bit-equal to their plain
+#: versions.
 SOURCES: dict[str, tuple[str, ...]] = {
     "sizing_latency": ("-fmad=false",),
     "fused_interp": (),
@@ -41,6 +44,14 @@ SOURCES: dict[str, tuple[str, ...]] = {
     "rglru_scan": ("-fmad=false",),
     "wkv6": (),
     "pairwise_sqdist": (),
+    "anneal_walk": ("-fmad=false",),
+}
+
+#: Sources in ``probes/`` that measure the card and compute nothing of a
+#: path (``chip_smoke.py`` times the dependent-load chase for the walk's
+#: latency bound).  Built as the kernels are, but only when named.
+PROBES: dict[str, tuple[str, ...]] = {
+    "dependent_load": (),
 }
 
 _lock = threading.Lock()
@@ -74,7 +85,7 @@ def sources(name: str) -> list[Path]:
     """The source of kernel ``name`` and every header beside it that it
     includes, directly or through another header, in the order found."""
     found: list[Path] = []
-    todo = [_CSRC / f"{name}.cu"]
+    todo = [_source(name)]
     while todo:
         path = todo.pop(0)
         if path in found:
@@ -87,8 +98,13 @@ def sources(name: str) -> list[Path]:
     return found
 
 
+def _source(name: str) -> Path:
+    return (_CSRC if name in SOURCES else _PROBES) / f"{name}.cu"
+
+
 def _target(name: str) -> tuple[Path, list[str]]:
-    flags = list(_COMMON) + list(SOURCES[name])
+    flags = list(_COMMON) + list(SOURCES[name] if name in SOURCES
+                                 else PROBES[name])
     h = hashlib.sha256(" ".join(flags).encode())
     for path in sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
@@ -96,9 +112,10 @@ def _target(name: str) -> tuple[Path, list[str]]:
 
 
 def build_all(names: tuple[str, ...] | None = None) -> dict[str, Path]:
-    """Build the named sources (default: all) that are not built yet, one
-    ``nvcc`` process per source, started together; raise with the
-    compiler's output if any fails.  Returns ``name -> library path``."""
+    """Build the named sources (default: every kernel's; a probe only when
+    named) that are not built yet, one ``nvcc`` process per source,
+    started together; raise with the compiler's output if any fails.
+    Returns ``name -> library path``."""
     names = tuple(SOURCES) if names is None else names
     out: dict[str, Path] = {}
     running = []
@@ -111,7 +128,7 @@ def build_all(names: tuple[str, ...] | None = None) -> dict[str, Path]:
         compiler = compiler or nvcc()
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [compiler, *flags, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        cmd = [compiler, *flags, "-o", str(tmp), str(_source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((name, so, tmp, proc, time.perf_counter()))

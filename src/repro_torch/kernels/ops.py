@@ -25,7 +25,7 @@ LAUNCHES: dict[str, int] = {"sizing_latency": 0, "fused_interp": 0,
                              "flash_attention": 0, "flash_decode": 0,
                              "flash_attention_bwd": 0, "quantize_int8": 0,
                              "rglru_scan": 0, "wkv6": 0,
-                             "pairwise_sqdist": 0}
+                             "pairwise_sqdist": 0, "anneal_walk": 0}
 
 
 def reset_launches() -> None:
@@ -36,6 +36,7 @@ def reset_launches() -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "sizing_latency": ("sizing_latency_launch",
                        [_P] * 7 + [_I, _I, _I, _F, _P]),
@@ -53,6 +54,9 @@ _SIGNATURES = {
     "wkv6": ("wkv6_launch", [_P] * 9 + [_I] * 5 + [_P]),
     "pairwise_sqdist": ("pairwise_sqdist_launch",
                         [_P] * 3 + [_I] * 3 + [_P]),
+    "anneal_walk": ("anneal_walk_launch",
+                    [_P, _P, _L, _L] + [_P] * 6 + [_L]
+                    + [_P] * 3 + [_F] + [_I] * 3 + [_P] * 7),
 }
 _fns: dict[str, object] = {}
 
@@ -701,3 +705,104 @@ def pairwise_sqdist(xq, xm):
             torch.cuda.current_stream().cuda_stream))
     LAUNCHES["pairwise_sqdist"] += 1
     return d2
+
+
+#: The most axes :func:`anneal_walk`'s kernel takes (a sizing space has
+#: two a tier).
+WALK_MAX_DIM = 32
+
+
+def anneal_walk(inits, table, taus, axis, up, pick, uniform, *, shape,
+                categorical, dynamic: bool = False, per_chain: bool = False,
+                extra=None, valid=None, noise=None, noise0=None,
+                noise_std: float = 0.0):
+    """C annealing chains walked S steps over a tabulated objective, in
+    one launch: ``(states (C, S, ndim) int32, ys (C, S) float32, accepts
+    (C, S) bool)``.  The arguments are :func:`.ref.anneal_walk_ref`'s:
+    ``inits`` (C, ndim) int32; ``table`` float32 ``(C,)? + (S,)? +
+    (size,)`` with ``per_chain`` and ``dynamic``; ``taus`` (C, S) float32;
+    the draws ``axis``, ``pick``
+    (C, S) int64, ``up`` (C, S) bool, ``uniform`` (C, S) float32; ``extra``
+    (C, size) float32 or None; ``valid`` (size,) bool or None; ``noise``
+    (C, S) and ``noise0`` (C,) float32 when ``noise_std > 0``.  On the card
+    the space has at most :data:`WALK_MAX_DIM` axes; the result is bit-equal
+    to the plain version's.
+    """
+    C, S = axis.shape
+    ndim = len(shape)
+    size = 1
+    for n in shape:
+        size *= int(n)
+    if len(categorical) != ndim:
+        raise ValueError(f"categorical has {len(categorical)} axes, shape "
+                         f"{ndim}")
+    want = ((C,) if per_chain else ()) + ((S,) if dynamic else ()) + (size,)
+    if tuple(table.shape) != want:
+        raise ValueError(f"table shape {tuple(table.shape)} != {want}")
+    if tuple(inits.shape) != (C, ndim):
+        raise ValueError(f"inits shape {tuple(inits.shape)} != {(C, ndim)}")
+    for arg, x in (("taus", taus), ("up", up), ("pick", pick),
+                   ("uniform", uniform)):
+        if tuple(x.shape) != (C, S):
+            raise ValueError(f"{arg} shape {tuple(x.shape)} != {(C, S)}")
+    if extra is not None and tuple(extra.shape) != (C, size):
+        raise ValueError(f"extra shape {tuple(extra.shape)} != {(C, size)}")
+    if valid is not None and tuple(valid.shape) != (size,):
+        raise ValueError(f"valid shape {tuple(valid.shape)} != {(size,)}")
+    noisy = noise_std > 0.0
+    if noisy and (noise is None or noise0 is None
+                  or tuple(noise.shape) != (C, S)
+                  or tuple(noise0.shape) != (C,)):
+        raise ValueError("noise_std > 0 needs noise (C, S) and noise0 (C,)")
+    args = {"inits": inits, "table": table, "taus": taus, "axis": axis,
+            "up": up, "pick": pick, "uniform": uniform}
+    types = {"inits": torch.int32, "table": torch.float32,
+             "taus": torch.float32,
+             "axis": torch.int64, "up": torch.bool, "pick": torch.int64,
+             "uniform": torch.float32, "extra": torch.float32,
+             "valid": torch.bool, "noise": torch.float32,
+             "noise0": torch.float32}
+    for arg, x in (("extra", extra), ("valid", valid)) + (
+            (("noise", noise), ("noise0", noise0)) if noisy else ()):
+        if x is not None:
+            args[arg] = x
+    on_card = _on_card("anneal_walk", args, types)
+    if not on_card:
+        return ref.anneal_walk_ref(
+            inits, table, taus, axis, up, pick, uniform, shape=shape,
+            categorical=categorical, dynamic=dynamic, per_chain=per_chain,
+            extra=extra, valid=valid, noise=noise, noise0=noise0,
+            noise_std=noise_std)
+    if ndim > WALK_MAX_DIM:
+        raise ValueError(f"anneal_walk kernel takes at most {WALK_MAX_DIM} "
+                         f"axes, got {ndim}")
+    dev = axis.device
+    states = torch.empty((C, S, ndim), dtype=torch.int32, device=dev)
+    ys = torch.empty((C, S), dtype=torch.float32, device=dev)
+    accepts = torch.empty((C, S), dtype=torch.bool, device=dev)
+    if C == 0 or S == 0:
+        return states, ys, accepts
+    strides = [1] * ndim
+    for d in range(ndim - 2, -1, -1):
+        strides[d] = strides[d + 1] * int(shape[d + 1])
+    tab_time = size if dynamic else 0
+    tab_chain = (S * size if dynamic else size) if per_chain else 0
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(dev):
+        _check("anneal_walk", _kernel("anneal_walk")(
+            inits.data_ptr(), table.data_ptr(), tab_chain, tab_time,
+            taus.data_ptr(), axis.data_ptr(), up.data_ptr(), pick.data_ptr(),
+            uniform.data_ptr(), ptr(extra), size, ptr(valid),
+            ptr(noise) if noisy else None, ptr(noise0) if noisy else None,
+            float(noise_std), C, S, ndim,
+            (ctypes.c_int * ndim)(*map(int, shape)),
+            (ctypes.c_longlong * ndim)(*strides),
+            (ctypes.c_uint8 * ndim)(*map(bool, categorical)),
+            states.data_ptr(), ys.data_ptr(), accepts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream))
+    LAUNCHES["anneal_walk"] += 1
+    return states, ys, accepts
+

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.neighborhood import propose_nd
+
 #: The model's mask value for refused scores (models/attention.py).
 NEG_INF = -2.0e30
 
@@ -327,3 +329,73 @@ def wkv6_ref(r, k, v, logw, u, initial_state: torch.Tensor | None = None):
                                  state + uf[None, :, :, None] * kv))
         state = torch.exp(lwf[:, t])[..., None] * state + kv
     return torch.stack(outs, dim=1), state
+
+
+def anneal_walk_ref(inits, table, taus, axis, up, pick, uniform, *,
+                    shape, categorical, dynamic: bool = False,
+                    per_chain: bool = False, extra=None, valid=None,
+                    noise=None, noise0=None, noise_std: float = 0.0):
+    """C annealing chains walked S steps over a tabulated objective, one
+    vectorised step at a time.
+
+    ``inits`` (C, ndim) int; ``table`` float32 of shape ``(C,)? + (S,)? +
+    (size,)`` (a leading chain axis with ``per_chain``, a time axis with
+    ``dynamic``) over the row-major flattening of ``shape``; ``taus`` (C,
+    S) float32; ``axis``, ``up``, ``pick``, ``uniform`` (C, S) the drawn
+    axis, direction, categorical pick and acceptance uniform;
+    ``categorical`` (ndim,) bools; ``extra`` (C, size) additive cost rows
+    or None; ``valid`` (size,) bool or None; ``noise`` (C, S) and
+    ``noise0`` (C,) standard normals, read when ``noise_std > 0``.
+
+    A step proposes (:func:`repro_torch.core.neighborhood.propose_nd`),
+    looks the proposal up (plus its extra cost and ``noise_std`` times its
+    normal), and accepts when the uniform is below ``exp(-max(dy, 0) /
+    tau)`` and the proposal is valid.
+    Returns ``(states (C, S, ndim) int32, ys (C, S) float32, accepts (C,
+    S) bool)``: the state after each step, the proposal's objective and
+    the accept flag.
+    """
+    C, S = axis.shape
+    dev = axis.device
+    ndim = len(shape)
+    noisy = noise_std > 0.0
+    strides = [1] * ndim
+    for d in range(ndim - 2, -1, -1):
+        strides[d] = strides[d + 1] * int(shape[d + 1])
+    strides = torch.tensor(strides, dtype=torch.int64, device=dev)
+    sizes = torch.tensor(shape, dtype=torch.int64, device=dev)
+    cat = torch.tensor(categorical, dtype=torch.bool, device=dev)
+    rows = torch.arange(C, device=dev)
+
+    def lookup(t, zi):
+        y_now = table[:, t] if (dynamic and per_chain) else (
+            table[t] if dynamic else table)
+        v = y_now[rows, zi] if per_chain else y_now[zi]
+        if extra is not None:
+            v = v + extra[rows, zi]
+        return v
+
+    x = inits.to(torch.int64)
+    y_x = lookup(0, (x * strides).sum(-1))
+    if noisy:
+        y_x = y_x + noise_std * noise0
+    states = torch.empty((C, S, ndim), dtype=torch.int32, device=dev)
+    ys = torch.empty((C, S), dtype=torch.float32, device=dev)
+    accepts = torch.empty((C, S), dtype=torch.bool, device=dev)
+    for t in range(S):
+        z = propose_nd(x, axis[:, t], up[:, t], pick[:, t], sizes, cat)
+        zi = (z * strides).sum(-1)
+        y_z = lookup(t, zi)
+        if noisy:
+            y_z = y_z + noise_std * noise[:, t]
+        dy = y_z - y_x
+        p = torch.exp(-torch.clamp(dy, min=0.0) / taus[:, t])
+        acc = uniform[:, t] < p
+        if valid is not None:
+            acc = acc & valid[zi]
+        x = torch.where(acc[:, None], z, x)
+        y_x = torch.where(acc, y_z, y_x)
+        states[:, t] = x
+        ys[:, t] = y_z
+        accepts[:, t] = acc
+    return states, ys, accepts

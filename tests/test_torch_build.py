@@ -80,3 +80,19 @@ def test_editing_a_shared_header_renames_exactly_its_includers(
     renamed = {name for name in build.SOURCES
                if build._target(name)[0] != before[name]}
     assert renamed == includers
+
+
+def test_probes_build_apart_from_the_kernels(tmp_path, monkeypatch):
+    """A probe of the card sits in probes/, is named like a kernel's
+    library, and is left out of a default build."""
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    assert set(build.PROBES).isdisjoint(build.SOURCES)
+    for name in build.PROBES:
+        assert build.sources(name) == [build._PROBES / f"{name}.cu"]
+        so, flags = build._target(name)
+        assert so.parent == tmp_path and so.name.startswith(f"{name}-")
+        assert "-fmad=false" not in flags
+    # everything already "built": a default build names the kernels only
+    for name in build.SOURCES:
+        build._target(name)[0].touch()
+    assert set(build.build_all()) == set(build.SOURCES)

@@ -1121,3 +1121,159 @@ def test_attention_score_sums_round_as_the_plain_product(cuda, hd):
     tol = 16.0 * 2.0 ** -24 * (q.float().norm(dim=1)[:, None]
                               * k.float().norm(dim=1)[None, :])
     assert bool(((t - seq).abs() <= tol).all())
+
+
+def _walk_inputs(dev, C, S, shape, categorical, *, dynamic=False,
+                 per_chain=False, extra=False, valid=False, noise_std=0.0,
+                 seed=0):
+    """Random inputs of ``ops.anneal_walk`` made on the card: a table in
+    [0, 3), temperatures in [0.1, 1.1), valid starting states, the draws
+    as ``anneal_fleet`` makes them; the valid mask (about 4 in 5 states)
+    holds every chain's start."""
+    from repro_torch.core.annealing import _draw
+    from repro_torch.core.state import EncodedSpace
+
+    g = _gen(seed, dev)
+    size = 1
+    for n in shape:
+        size *= n
+    lead = (C,) if per_chain else ()
+    time = (S,) if dynamic else ()
+    table = 3.0 * torch.rand(lead + time + (size,), generator=g, device=dev)
+    taus = 0.1 + torch.rand((C, S), generator=g, device=dev)
+    inits = torch.stack([torch.randint(0, n, (C,), generator=g, device=dev)
+                         for n in shape], -1).to(torch.int32)
+    d = _draw(g, EncodedSpace(tuple(shape), tuple(categorical)), C, S,
+              noise_std > 0, dev)
+    kw = dict(shape=tuple(shape), categorical=tuple(categorical),
+              dynamic=dynamic, per_chain=per_chain, noise_std=noise_std,
+              noise=d.get("noise"), noise0=d.get("noise0"))
+    if extra:
+        kw["extra"] = torch.rand((C, size), generator=g, device=dev)
+    if valid:
+        mask = torch.rand(size, generator=g, device=dev) < 0.8
+        strides = torch.tensor([1] * len(shape), device=dev)
+        for i in range(len(shape) - 2, -1, -1):
+            strides[i] = strides[i + 1] * shape[i + 1]
+        mask[(inits.long() * strides).sum(-1)] = True
+        kw["valid"] = mask
+    return (inits, table, taus, d["axis"], d["up"], d["pick"],
+            d["uniform"]), kw
+
+
+def _walk_equal(args, kw):
+    n0 = ops.LAUNCHES["anneal_walk"]
+    got = ops.anneal_walk(*args, **kw)
+    want = ref.anneal_walk_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["anneal_walk"] == n0 + 1
+    # bit-equal: the plain version's roundings in its order, -fmad=false,
+    # expf as torch.exp calls it, a strict < against the uniform; a NaN
+    # objective (a NaN table entry) is NaN in both
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        same = g == w
+        if g.is_floating_point():
+            same |= g.isnan() & w.isnan()
+        assert bool(same.all())
+    return got
+
+
+# (C, S, shape, categorical, options): path A's 8-tier sizing shape, Fig.
+# 4's sweep, Fig. 5's time-indexed table, a noisy chain, per-chain tables
+# with extra rows and a valid mask at fleet_chains' bucket
+WALK_FORMS = {
+    "path_a": (16, 64, (4,) * 8, (False,) * 8, {"valid": True}),
+    "fig4": (320, 4000, (48,), (False,), {}),
+    "fig5": (1, 6000, (48,), (False,), {"dynamic": True}),
+    "noisy": (33, 500, (5, 4, 3), (False, True, False),
+              {"noise_std": 0.4}),
+    "fleet": (1024, 32, (4, 30), (True, False),
+              {"per_chain": True, "extra": True, "valid": True}),
+    "dynamic_per_chain": (3, 100, (7, 1, 3), (True, False, True),
+                          {"per_chain": True, "dynamic": True,
+                           "extra": True}),
+    "sixteen_axes": (64, 200, (3, 2) * 8, (False, True) * 8,
+                     {"valid": True}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(WALK_FORMS))
+def test_anneal_walk_kernel_on_card(cuda, form):
+    C, S, shape, cat, opt = WALK_FORMS[form]
+    args, kw = _walk_inputs(cuda, C, S, shape, cat, **opt)
+    _, _, accepts = _walk_equal(args, kw)
+    assert 0 < float(accepts.float().mean()) < 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 31, 33, 1023])
+@pytest.mark.parametrize("valid", [False, True])
+def test_anneal_walk_kernel_ragged_chain_counts(cuda, C, valid):
+    args, kw = _walk_inputs(cuda, C, 50, (6, 5), (False, True), valid=valid,
+                            seed=C)
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+def test_anneal_walk_kernel_broadcast_temperatures(cuda):
+    """Scalar, per-chain and per-step temperatures: the kernel reads a
+    dense (C, S) array, so it refuses a broadcast view, and the dense copy
+    (what ``anneal_fleet`` hands it) walks bit-equal."""
+    args, kw = _walk_inputs(cuda, 40, 60, (5, 6), (False, False), seed=3)
+    inits, table, _, *draws = args
+    for taus in (torch.full((), 0.7, device=cuda).expand(40, 60),
+                 torch.rand(40, 1, device=cuda).expand(40, 60),
+                 torch.rand(60, device=cuda).expand(40, 60)):
+        with pytest.raises(ValueError, match="taus must be contiguous"):
+            ops.anneal_walk(inits, table, taus, *draws, **kw)
+        _walk_equal((inits, table, taus.contiguous(), *draws), kw)
+
+
+@pytest.mark.gpu
+def test_anneal_walk_kernel_infinite_and_nan_objectives(cuda):
+    """Infinite table entries (the surrogate source's invalid states) and
+    NaN steps: the clamp keeps NaN as torch.clamp does, so the accept
+    flags still match."""
+    args, kw = _walk_inputs(cuda, 64, 80, (8, 4), (False, True), seed=5)
+    table = args[1].clone()
+    table[::7] = float("inf")
+    table[3::11] = float("nan")
+    _walk_equal((args[0], table) + args[2:], kw)
+
+
+@pytest.mark.gpu
+def test_anneal_walk_kernel_refuses_what_it_does_not_take(cuda):
+    args, kw = _walk_inputs(cuda, 4, 10, (1,) * 30 + (2, 3, 2),
+                            (False,) * 33)
+    with pytest.raises(ValueError, match="at most 32"):
+        ops.anneal_walk(*args, **kw)
+    args, kw = _walk_inputs(cuda, 4, 10, (3, 4), (False, False))
+    with pytest.raises(TypeError, match="int64"):
+        ops.anneal_walk(args[0], args[1], args[2], args[3].to(torch.int32),
+                        *args[4:], **kw)
+    with pytest.raises(ValueError, match="lie on the CPU or all"):
+        ops.anneal_walk(args[0].cpu(), *args[1:], **kw)
+
+
+@pytest.mark.gpu
+def test_fleet_chains_padding_is_bit_identical_on_card(cuda):
+    from repro_torch.core.annealing import fleet_chains
+
+    C, S, shape = 1000, 32, (4, 30)
+    g = _gen(9, cuda)
+    tables = torch.rand((C, 120), generator=g, device=cuda)
+    taus = 0.2 + torch.rand((C, S), generator=g, device=cuda)
+    inits = torch.stack([torch.randint(0, n, (C,), generator=g, device=cuda)
+                         for n in shape], -1).to(torch.int32)
+    extra = torch.rand((C, 120), generator=g, device=cuda)
+    kw = dict(shape=shape, categorical=(True, False), device="cuda")
+    n0 = ops.LAUNCHES["anneal_walk"]
+    padded = fleet_chains(_gen(1, cuda), tables, None, taus, inits, extra,
+                          bucket=True, **kw)
+    flat = fleet_chains(_gen(1, cuda), tables, None, taus, inits, extra,
+                        bucket=False, **kw)
+    assert ops.LAUNCHES["anneal_walk"] == n0 + 2
+    for a, b in zip(padded, flat):
+        assert a.shape[0] == C and torch.equal(a, b)

@@ -314,3 +314,85 @@ def test_fault_tolerance_copy_is_identical(fail_steps, rate, seed):
         == _supervised_run(pt_ft, fail_steps, rate, seed)
     with pytest.raises(pt_ft.StepFailure):
         pt_ft.FailureInjector(fail_steps=(2,)).check(2)
+
+
+def _code_without_docstrings(path):
+    """The module's syntax tree with every docstring removed, dumped."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    getattr(first, "value", None), ast.Constant) and \
+                    isinstance(first.value.value, str):
+                node.body = node.body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def test_evalpipe_copy_is_the_reference_code():
+    """The port's evaluation runtime is the reference's module with only
+    its docstrings changed (its imports are the same relative ones)."""
+    import repro.core.evalpipe as ref_ep
+    import repro_torch.core.evalpipe as pt_ep
+
+    assert _code_without_docstrings(pt_ep.__file__) \
+        == _code_without_docstrings(ref_ep.__file__)
+
+
+def test_store_predictor_is_identical():
+    from repro.core import evalpipe as ref_ep
+    from repro_torch.core import evalpipe as pt_ep
+
+    rng = np.random.default_rng(6)
+    space_a, space_b = _space(ref_state, True), _space(pt_state, True)
+    a = ref_sur.MeasurementStore(3, half_life=5.0)
+    b = pt_sur.MeasurementStore(3, half_life=5.0)
+    valid = space_a.valid_states()
+    pa, pb = ref_ep.StorePredictor(space_a, a), pt_ep.StorePredictor(
+        space_b, b)
+    assert pa(valid[:3]) is None and pb(valid[:3]) is None
+    for t in range(30):
+        s = valid[int(rng.integers(len(valid)))]
+        y = float(rng.normal())
+        a.add(s, y, float(t))
+        b.add(s, y, float(t))
+    for now in (None, 40.0):
+        for x, z in zip(pa(valid, now), pb(valid, now)):
+            assert np.array_equal(x, z)
+
+
+@pytest.mark.parametrize("half_width", [1, 2, 6])
+def test_window_space_is_identical(half_width):
+    dims_a = (ref_state.Dimension("n", tuple(range(20))),
+              ref_state.Dimension("f", ("a", "b", "c"), kind="categorical"),
+              ref_state.Dimension("m", (1, 2, 4)))
+    dims_b = (pt_state.Dimension("n", tuple(range(20))),
+              pt_state.Dimension("f", ("a", "b", "c"), kind="categorical"),
+              pt_state.Dimension("m", (1, 2, 4)))
+    a_space = ref_state.ConfigSpace(dims_a)
+    b_space = pt_state.ConfigSpace(dims_b)
+    for center in [(0, 1, 0), (9, 0, 2), (19, 2, 1)]:
+        a, oa = ref_sur.window_space(a_space, center, half_width)
+        b, ob = pt_sur.window_space(b_space, center, half_width)
+        assert [d.values for d in a.dimensions] \
+            == [d.values for d in b.dimensions]
+        assert [d.kind for d in a.dimensions] \
+            == [d.kind for d in b.dimensions]
+        assert np.array_equal(oa, ob)
+    with pytest.raises(ValueError):
+        pt_sur.window_space(b_space, (0, 0, 0), 0)
+
+
+def test_expected_improvement_is_identical():
+    rng = np.random.default_rng(8)
+    mean = rng.normal(size=(7, 5))
+    unc = np.abs(rng.normal(size=(7, 5)))
+    unc[0] = 0.0                                  # measured: no credit
+    for y_best in (-1.0, 0.0, 0.7):
+        a = ref_sur.expected_improvement(mean, unc, y_best)
+        b = pt_sur.expected_improvement(mean, unc, y_best)
+        assert np.array_equal(a, b)
+    assert (b >= 0).all()

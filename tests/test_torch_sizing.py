@@ -256,9 +256,6 @@ def test_surrogate_predict_matches_jax(kind):
 
 
 def test_controller_refusals():
-    with pytest.raises(NotImplementedError, match="evalpipe"):
-        psz.SizingController(_pspec(), MIX_BROWSE, eval_workers=4,
-                             device="cpu")
     big = _pspec(sizes=(pms.ContainerSize("s", 1, 2.0),
                         pms.ContainerSize("m", 2, 4.0),
                         pms.ContainerSize("l", 4, 8.0)),
@@ -274,4 +271,4 @@ def test_cpu_main_path_launches_no_kernel():
     assert ops.LAUNCHES == dict.fromkeys(
         ("sizing_latency", "fused_interp", "flash_attention",
          "flash_decode", "flash_attention_bwd", "quantize_int8",
-         "rglru_scan", "wkv6", "pairwise_sqdist"), 0)
+         "rglru_scan", "wkv6", "pairwise_sqdist", "anneal_walk"), 0)
