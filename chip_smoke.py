@@ -1461,6 +1461,61 @@ def walk_inputs(torch, dev, C, S, shape, categorical, table=None, *,
             d["uniform"]), kw
 
 
+def walk_cases(torch, ops, dev) -> dict:
+    """``ops.anneal_walk``'s inputs at the five shapes its timings use,
+    as the paths give them: path A's and path B's rounds (one round of
+    each controller), Figs. 4's and 5's sweeps (the figures' own runs) and
+    ``fleet_chains``' bucket (1,000 tenants of random per-tenant tables
+    and extra rows on the paper's 4 x 30 space, padded to 1,024)."""
+    import numpy as np
+
+    from repro_torch.core import fleet_chains
+    from repro_torch.core import sizing as sz
+    from repro_torch.core.surrogate import SurrogateSource
+    from repro_torch.device import generator
+    from repro_torch.figures import paper_figures
+    from repro_torch.workloads import microservice as ms
+
+    small, large = make_specs(sz, ms)
+    cases = {}
+    with capture_walk(ops, cases, "path A round"):
+        sz.SizingController(small, MIX_DAY, steps_per_round=64,
+                            n_chains=16, seed=0, device="cuda").round()
+    with capture_walk(ops, cases, "path B round"):
+        sz.SizingController(
+            large, MIX_DAY, objective_source=SurrogateSource(
+                n_probe=1024, seed=3, device="cuda"),
+            steps_per_round=64, n_chains=16, seed=3, device="cuda").round()
+    os.environ.setdefault("REPRO_BENCH_OUT",
+                          str(ROOT / "build" / "chip_smoke_figures"))
+    with capture_walk(ops, cases, "Fig. 4 sweep"):
+        paper_figures.fig4_temperature("cuda")
+    with capture_walk(ops, cases, "Fig. 5 sweep"):
+        paper_figures.fig5_change("cuda")
+    rng = np.random.default_rng(0)
+    T, S, shape = G_TENANTS, G_FLEET_STEPS, (4, 30)
+    tables = rng.uniform(100.0, 200.0, (T, 120)).astype(np.float32)
+    extra = rng.uniform(0.0, 5.0, (T, 120)).astype(np.float32)
+    taus = np.broadcast_to(rng.uniform(0.5, 2.0, (T, 1)), (T, S)) \
+        .astype(np.float32)
+    inits = np.stack([rng.integers(0, n, T) for n in shape],
+                     -1).astype(np.int32)
+    with capture_walk(ops, cases, "fleet_chains bucket"):
+        fleet_chains(generator(0, device=dev), tables, None, taus, inits,
+                     extra, shape=shape, categorical=(True, False),
+                     device="cuda")
+    torch.cuda.synchronize()
+    return cases
+
+
+def walk_same(torch, got, want) -> bool:
+    """Two walks' (states, ys, accepts) bit-equal: equal element by
+    element, a NaN objective NaN in both."""
+    return all(g.dtype == w.dtype and g.shape == w.shape and bool(
+        ((g == w) | (g.isnan() & w.isnan()) if g.is_floating_point()
+         else g == w).all()) for g, w in zip(got, want))
+
+
 def check_walk(torch, ops, ref, label, args, kw) -> float:
     """``anneal_walk`` against its plain version on the same inputs:
     states, ys and accepts bit-equal (equal element by element, a NaN
@@ -1469,9 +1524,7 @@ def check_walk(torch, ops, ref, label, args, kw) -> float:
     got = ops.anneal_walk(*args, **kw)
     want = ref.anneal_walk_ref(*args, **kw)
     torch.cuda.synchronize()
-    same = all(g.dtype == w.dtype and g.shape == w.shape and bool(
-        ((g == w) | (g.isnan() & w.isnan()) if g.is_floating_point()
-         else g == w).all()) for g, w in zip(got, want))
+    same = walk_same(torch, got, want)
     fin = torch.isfinite(got[1]) & torch.isfinite(want[1])
     err = float((got[1] - want[1])[fin].abs().max()) if bool(fin.any()) \
         else 0.0
@@ -1779,21 +1832,39 @@ def dependent_load_ns(torch, build, footprint: int,
     return (t_more - t_pass) * 1e6 / n_timed
 
 
+def walk_plan_of(ops, args, kw):
+    """The plan ``ops.anneal_walk`` makes for these inputs on this card."""
+    inits, table, _, axis = args[:4]
+    C, S = axis.shape
+    smem, sms = ops._card_limits(axis.device)
+    return ops.walk_plan(
+        C, S, inits.shape[1], table.shape[-1], per_chain=kw["per_chain"],
+        dynamic=kw["dynamic"], extra=kw.get("extra") is not None,
+        valid=kw.get("valid") is not None, noisy=kw["noise_std"] > 0,
+        smem_limit=smem, sms=sms)
+
+
 def time_walk(torch, ops, ref, build, captured) -> list[dict]:
-    """``anneal_walk`` at path A's round, Fig. 4's sweep and
-    ``fleet_chains``' bucket, on the inputs those paths gave it, each with
-    a cold L2: kernel, plain version, its bound (the bytes: draws,
-    temperatures and starts read once, the table's, extra rows' and
-    mask's sectors that the walk looked up (``walk_reads``), states,
-    objectives and flags written once; about 20 float32 operations a
-    step), its latency bound (S dependent table loads, each at least the
-    chase's time over the table bytes it read) and the time of its first
-    chain alone (``chain_ms``: the S dependent steps the kernel cannot
-    overlap)."""
+    """``anneal_walk`` at path A's round, Fig. 4's sweep,
+    ``fleet_chains``' bucket and path B's round, on the inputs those paths
+    gave it, each with a cold L2: kernel, plain version, its bound (the
+    bytes: draws, temperatures and starts read once, the table's, extra
+    rows' and mask's sectors that the walk looked up (``walk_reads``),
+    states, objectives and flags written once; about 20 float32
+    operations a step), its latency bound (S dependent table loads, each
+    at least the chase's time over the table bytes it read) and the time
+    of its first chain alone (``chain_ms``: the S dependent steps the
+    kernel cannot overlap), printed as nanoseconds a step beside the
+    chase's dependent load, with the kernel's plan and its ptxas lines."""
+    log = build.build_log.get("anneal_walk", (0.0, ""))[1]
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"anneal_walk ptxas: {line.strip()}")
     rows = []
     for label, iters, plain_iters in (("path A round", 200, 10),
                                       ("Fig. 4 sweep", 20, 2),
-                                      ("fleet_chains bucket", 200, 10)):
+                                      ("fleet_chains bucket", 200, 10),
+                                      ("path B round", 200, 10)):
         args, kw = captured[label]
         inits, _, _, axis = args[:4]
         C, S = axis.shape
@@ -1812,6 +1883,7 @@ def time_walk(torch, ops, ref, build, captured) -> list[dict]:
                    and v is not None else v) for k, v in kw.items()}
         rows.append(dict(
             name="anneal_walk", label=label, shape=walk_shape(args),
+            plan=walk_plan_of(ops, args, kw),
             ms=time_cold_ms(torch, lambda: ops.anneal_walk(*args, **kw),
                             iters),
             plain_ms=time_cold_ms(torch, lambda: ref.anneal_walk_ref(
@@ -1819,20 +1891,21 @@ def time_walk(torch, ops, ref, build, captured) -> list[dict]:
             chain_ms=time_cold_ms(torch, lambda: ops.anneal_walk(
                 *one, **kw1), iters),
             library_ms=None, latency_bound_ms=S * ns * 1e-6,
-            dep_load_ns=ns, table_bytes=footprint,
+            dep_load_ns=ns, table_bytes=footprint, steps=S,
             **bound(nbytes, 20 * C * S, FP32_OPS_PER_S)))
     for row in rows:
         print_row(row)
         lat = row["latency_bound_ms"]
         held = max(lat, row["bound_ms"])
         by = "latency" if lat > row["bound_ms"] else row["bound_by"]
-        print(f"anneal_walk {row['label']}: latency bound {lat:.4f} ms "
-              f"({row['dep_load_ns']:.2f} ns a dependent load over "
-              f"{row['table_bytes']} B of table); the larger bound "
+        print(f"anneal_walk {row['label']}: {row['plan']}; latency bound "
+              f"{lat:.4f} ms ({row['dep_load_ns']:.2f} ns a dependent load "
+              f"over {row['table_bytes']} B of table); the larger bound "
               f"{held:.4f} ms ({by}), {held / row['ms']:.4f} of the "
-              f"kernel's time; one chain "
-              f"alone {row['chain_ms']:.4f} ms, "
-              f"{row['chain_ms'] / row['ms']:.4f} of the walk's time")
+              f"kernel's time; one chain alone {row['chain_ms']:.4f} ms, "
+              f"{row['chain_ms'] / row['ms']:.4f} of the walk's time, "
+              f"{row['chain_ms'] * 1e6 / row['steps']:.1f} ns a step "
+              f"against {row['dep_load_ns']:.2f} ns a dependent load")
     return rows
 
 

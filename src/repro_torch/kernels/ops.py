@@ -15,6 +15,7 @@ and :func:`flash_attention_bwd` backward.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -69,6 +70,18 @@ def _kernel(name: str):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn
+    return fn
+
+
+def _walk_set_plan():
+    """This checkout's ``anneal_walk_set_plan``: the plan of the thread's
+    next ``anneal_walk_launch``."""
+    fn = _fns.get("anneal_walk_set_plan")
+    if fn is None:
+        fn = build.library("anneal_walk").anneal_walk_set_plan
+        fn.argtypes = [_I] * 3
+        fn.restype = ctypes.c_int
+        _fns["anneal_walk_set_plan"] = fn
     return fn
 
 
@@ -710,6 +723,96 @@ def pairwise_sqdist(xq, xm):
 #: The most axes :func:`anneal_walk`'s kernel takes (a sizing space has
 #: two a tier).
 WALK_MAX_DIM = 32
+#: The H100's opt-in shared memory a block (227 KB), and its SMs.
+H100_SMEM, H100_SMS = 232_448, 132
+#: A time-indexed table is staged a window at a time only while a lane's
+#: share of one step's rows is at most this many floats (a chain looks up
+#: two entries a step; a window copies whole rows): a per-chain row of 16,
+#: a shared row of 512.
+WALK_STAGE_ROW_MAX = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    """How :func:`anneal_walk`'s kernel runs a call, a block of one warp
+    (32 chains) at a time: windows of ``window`` steps, lookups ``staged``
+    in shared memory or not, and ``smem`` bytes of dynamic shared memory
+    a block."""
+    window: int
+    staged: bool
+    smem: int
+
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def walk_smem(window: int, staged: bool, ndim: int, size: int, *,
+              per_chain: bool, dynamic: bool, extra: bool, valid: bool,
+              noisy: bool) -> int:
+    """Dynamic shared memory of one block of :func:`anneal_walk`'s kernel
+    (its ``layout`` in ``anneal_walk.cu``): the space (size, stride and
+    packed field of each axis, 512 B), a staged static shared table and
+    valid mask (or a one-byte dummy); then two windows of draws
+    (a row of W elements and 16 bytes a chain in each of 5 arrays, 6 when
+    noisy: axis and pick int64, up bool, uniform, tau and noise float32),
+    two windows of a staged time-indexed table, staged per-chain rows,
+    staged extra rows (or a -0 dummy), and the output tiles (a state, an
+    objective and a flag a step and lane: the state a flat int32 index on
+    one axis, else packed coordinates in 8 bytes)."""
+    W = window
+    n = 512
+    if staged and not per_chain and not dynamic:
+        n += _a16(4 * size)
+    if staged:                  # the mask, or a one-byte dummy
+        n += _a16(size + 8) if valid else 16
+    n += 2 * 32 * sum(W * esz + 16 for esz in
+                      (8, 1, 8, 4, 4, 4)[:6 if noisy else 5])
+    if staged and dynamic:
+        n += 2 * _a16(4 * (32 if per_chain else 1) * W * size)
+    if staged and per_chain and not dynamic:
+        n += _a16(4 * 32 * size)
+    if staged:                  # the extra rows, or a -0 dummy
+        n += _a16(4 * 32 * size) if extra else 16
+    n += (8 if ndim > 1 else 4) * W * 33 + 4 * W * 33 + 36 * W
+    return _a16(n)
+
+
+def walk_plan(C: int, S: int, ndim: int, size: int, *, per_chain: bool,
+              dynamic: bool, extra: bool, valid: bool, noisy: bool,
+              smem_limit: int = H100_SMEM, sms: int = H100_SMS) -> WalkPlan:
+    """The launch plan of one :func:`anneal_walk` call on the card.
+
+    Lookups are staged in shared memory when the table (with its extra
+    rows and mask) fits beside the rest, a time-indexed one only while
+    its rows are small (:data:`WALK_STAGE_ROW_MAX`); otherwise they read
+    device memory.  The window is 64 steps where S and the shared memory
+    allow and the blocks (32 chains each) fit on the ``sms`` SMs one each;
+    past that 32, whose smaller blocks sit several to an SM.  Raises when
+    even the smallest block exceeds ``smem_limit``."""
+    if C < 1 or S < 1 or ndim < 1 or size < 1:
+        raise ValueError(f"walk_plan: C {C}, S {S}, ndim {ndim}, size "
+                         f"{size}: each must be >= 1")
+    kw = dict(per_chain=per_chain, dynamic=dynamic, extra=extra,
+              valid=valid, noisy=noisy)
+    stageable = not dynamic or size <= (
+        WALK_STAGE_ROW_MAX if per_chain else 32 * WALK_STAGE_ROW_MAX)
+    long_window = S > 32 and -(-C // 32) <= sms
+    for staged in ((True, False) if stageable else (False,)):
+        for window in ((64, 32) if long_window else (32,)):
+            smem = walk_smem(window, staged, ndim, size, **kw)
+            if smem <= smem_limit:
+                return WalkPlan(window, staged, smem)
+    raise ValueError(f"anneal_walk kernel: {ndim} axes need "
+                     f"{walk_smem(32, False, ndim, size, **kw)} bytes of "
+                     f"shared memory a block, more than {smem_limit}")
+
+
+def _card_limits(dev: torch.device) -> tuple[int, int]:
+    """(opt-in shared memory a block, SMs) of one card."""
+    props = torch.cuda.get_device_properties(dev)
+    return (getattr(props, "shared_memory_per_block_optin", H100_SMEM),
+            props.multi_processor_count)
 
 
 def anneal_walk(inits, table, taus, axis, up, pick, uniform, *, shape,
@@ -776,6 +879,9 @@ def anneal_walk(inits, table, taus, axis, up, pick, uniform, *, shape,
     if ndim > WALK_MAX_DIM:
         raise ValueError(f"anneal_walk kernel takes at most {WALK_MAX_DIM} "
                          f"axes, got {ndim}")
+    if size >= 2 ** 31:
+        raise ValueError(f"anneal_walk kernel takes fewer than 2^31 states, "
+                         f"got {size}")
     dev = axis.device
     states = torch.empty((C, S, ndim), dtype=torch.int32, device=dev)
     ys = torch.empty((C, S), dtype=torch.float32, device=dev)
@@ -791,7 +897,13 @@ def anneal_walk(inits, table, taus, axis, up, pick, uniform, *, shape,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    smem_limit, sms = _card_limits(dev)
+    plan = walk_plan(C, S, ndim, size, per_chain=per_chain, dynamic=dynamic,
+                     extra=extra is not None, valid=valid is not None,
+                     noisy=noisy, smem_limit=smem_limit, sms=sms)
     with torch.cuda.device(dev):
+        _check("anneal_walk", _walk_set_plan()(
+            plan.window, int(plan.staged), plan.smem))
         _check("anneal_walk", _kernel("anneal_walk")(
             inits.data_ptr(), table.data_ptr(), tab_chain, tab_time,
             taus.data_ptr(), axis.data_ptr(), up.data_ptr(), pick.data_ptr(),

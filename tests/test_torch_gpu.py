@@ -1257,6 +1257,161 @@ def test_anneal_walk_kernel_refuses_what_it_does_not_take(cuda):
         ops.anneal_walk(args[0].cpu(), *args[1:], **kw)
 
 
+def _plan_of(args, kw):
+    """The plan ``ops.anneal_walk`` makes for these inputs on this card."""
+    inits, table, taus, axis = args[:4]
+    C, S = axis.shape
+    smem, sms = ops._card_limits(axis.device)
+    return ops.walk_plan(
+        C, S, inits.shape[1], table.shape[-1], per_chain=kw["per_chain"],
+        dynamic=kw["dynamic"], extra=kw.get("extra") is not None,
+        valid=kw.get("valid") is not None, noisy=kw["noise_std"] > 0,
+        smem_limit=smem, sms=sms)
+
+
+# a one-axis space of 48 states (staged) and path A's 16-axis grid
+# (unstaged), both in windows of 64 steps when S > 32, else of 32
+WINDOW_FORMS = {"staged": ((48,), (False,)),
+                "unstaged": ((4,) * 8 + (2,) * 8, (False, True) * 8)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 63, 64, 65, 129])
+@pytest.mark.parametrize("form", list(WINDOW_FORMS))
+def test_anneal_walk_kernel_at_the_window_edges(cuda, form, S):
+    """S at the edges of a window (W - 1, W, W + 1, 2W + 1 for W = 32 and
+    64): the windows' copies, the look-ahead into the next window and the
+    last window's write-out."""
+    shape, cat = WINDOW_FORMS[form]
+    args, kw = _walk_inputs(cuda, 40, S, shape, cat, valid=form == "staged",
+                            seed=S)
+    plan = _plan_of(args, kw)
+    assert plan.staged == (form == "staged")
+    assert plan.window == (64 if S > 32 else 32)
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [0, 1])
+def test_anneal_walk_kernel_table_at_the_staging_limit(cuda, over):
+    """A shared table one float under, then one over, the room a block of
+    32-step windows leaves it: staged, then unstaged, bit-equal both
+    ways."""
+    smem, _ = ops._card_limits(cuda)
+    flags = dict(per_chain=False, dynamic=False, extra=False, valid=False,
+                 noisy=False)
+    room = (smem - ops.walk_smem(32, False, 1, 1, **flags)) // 4
+    while ops.walk_smem(32, True, 1, room, **flags) > smem:
+        room -= 1
+    size = room + over
+    args, kw = _walk_inputs(cuda, 40, 100, (size,), (False,), seed=over)
+    plan = _plan_of(args, kw)
+    assert plan.staged == (not over)
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noise_std", [0.0, 0.3])
+def test_anneal_walk_kernel_thirty_two_axes(cuda, noise_std):
+    """WALK_MAX_DIM axes (fields of 2 and 1 bits of the packed state for
+    the size-3 and size-2 axes, none for the size-1 ones), some
+    categorical, with a valid mask."""
+    shape = (3, 2) * 8 + (2, 1) * 8
+    cat = (False, True, True, False) * 8
+    assert len(shape) == ops.WALK_MAX_DIM
+    args, kw = _walk_inputs(cuda, 45, 150, shape, cat, valid=True,
+                            noise_std=noise_std, seed=32)
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+def test_anneal_walk_kernel_packed_state_past_32_bits(cuda):
+    """17 axes of 3 states (2 bits each: fields up to bit 34 of the packed
+    state) and 15 of one, 129,140,163 states in all."""
+    shape = (3,) * 17 + (1,) * 15
+    cat = (False, True) * 16
+    args, kw = _walk_inputs(cuda, 40, 60, shape, cat, seed=34)
+    assert not _plan_of(args, kw).staged
+    _walk_equal(args, kw)
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", list(WINDOW_FORMS))
+def test_anneal_walk_kernel_infinities_nan_and_mask(cuda, form):
+    """+inf, -inf and NaN table entries with a valid mask, staged and
+    unstaged: the division's special cases and the masked rejections
+    walk as the plain version does."""
+    shape, cat = WINDOW_FORMS[form]
+    args, kw = _walk_inputs(cuda, 70, 120, shape, cat, valid=True, seed=7)
+    table = args[1].clone()
+    table[::5] = float("inf")
+    table[2::9] = float("-inf")
+    table[3::11] = float("nan")
+    args = (args[0], table) + args[2:]
+    assert _plan_of(args, kw).staged == (form == "staged")
+    _, ys, accepts = _walk_equal(args, kw)
+    assert bool(ys.isinf().any()) and bool(ys.isnan().any())
+    assert 0 < float(accepts.float().mean()) < 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 3), (7, 1, 3)])
+def test_anneal_walk_kernel_per_chain_time_indexed_ragged(cuda, shape):
+    """Per-chain time-indexed tables with extra rows at C = 37 (not a
+    multiple of a block's 32 chains): staged a window at a time (12
+    states), unstaged (21)."""
+    args, kw = _walk_inputs(cuda, 37, 100, shape, (True,) + (False,) * (
+        len(shape) - 1), per_chain=True, dynamic=True, extra=True, seed=37)
+    assert _plan_of(args, kw).staged == (len(shape) == 2)
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["path_a", "fig4", "fig5", "noisy",
+                                  "fleet", "dynamic_per_chain"])
+@pytest.mark.parametrize("variant", ["unstaged", "other_window"])
+def test_anneal_walk_kernel_variants_agree(cuda, monkeypatch, form,
+                                           variant):
+    """The plan's variants walk alike: every form run unstaged, and run in
+    the window its plan did not pick (32 and 64 steps swapped), is
+    bit-equal to the plain version, as the planned runs above are."""
+    C, S, shape, cat, opt = WALK_FORMS[form]
+    args, kw = _walk_inputs(cuda, C, S, shape, cat, **opt)
+    real = ops.walk_plan
+    smem, _ = ops._card_limits(cuda)
+
+    def forced(C, S, ndim, size, **flags):
+        plan = real(C, S, ndim, size, **flags)
+        keep = {k: flags[k] for k in ("per_chain", "dynamic", "extra",
+                                      "valid", "noisy")}
+        window, staged = plan.window, plan.staged
+        if variant == "unstaged":
+            staged = False
+        else:
+            window = 96 - window
+        new = ops.WalkPlan(window, staged, ops.walk_smem(
+            window, staged, ndim, size, **keep))
+        assert new.smem <= smem
+        return new
+
+    monkeypatch.setattr(ops, "walk_plan", forced)
+    _walk_equal(args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["fig4", "fleet"])
+def test_anneal_walk_kernel_past_one_block_an_sm(cuda, form):
+    """More blocks (32 chains each) than the card has SMs: 32-step windows
+    even where S is longer, several blocks to an SM, bit-equal."""
+    _, S, shape, cat, opt = WALK_FORMS[form]
+    _, sms = ops._card_limits(cuda)
+    C, S = 32 * sms + 5, max(S, 100)
+    args, kw = _walk_inputs(cuda, C, S, shape, cat, seed=5, **opt)
+    assert _plan_of(args, kw).window == 32
+    _walk_equal(args, kw)
+
+
 @pytest.mark.gpu
 def test_fleet_chains_padding_is_bit_identical_on_card(cuda):
     from repro_torch.core.annealing import fleet_chains
