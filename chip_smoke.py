@@ -45,6 +45,19 @@ What it does, in order; any failure exits non-zero:
    valid minimum, one ``anneal_walk`` launch a plan), then 300 jobs; (d)
    ``fleet_chains`` at 1,000 tenants (bucket 1,024) x 32 steps with
    per-tenant tables and extra rows, rows 0..999 bit-equal unpadded;
+5c. path H, the multi-tenant fleet (``repro_torch.figures.trace_fleet``'s
+   controller, the reference's constants): (a) its smoke replay, 64
+   tenants over 600 s of the trace ``BENCH_trace.json`` holds, on the
+   card (SLO attainment 1.0, no violation round, as the reference's) and
+   on the host in the same process, the two FleetDecision logs equal
+   field for field; (b) 1,024 tenants over 3,600 s and the 64-tenant
+   baseline over the same horizon, five turns of each in alternation: no
+   violation in the final quarter, SLO attainment >= 0.8, < 60% of
+   tenant-rounds annealed, the wall time (each size's fastest turn)
+   <= half the 16x tenant ratio; in both, one ``anneal_walk`` launch in
+   each round that annealed a chain (none in the others) and at most one
+   synchronizing call a round (the read-back), counted by torch's sync
+   debug mode while the replay runs;
 6. path C: the annealed serve loop (``repro_torch.serving.anneal``) on
    qwen3-8b at its full width and depth (36 layers, random bf16 weights
    from a seed): 6 rounds of 24 requests of 512 tokens, 16 new tokens
@@ -87,8 +100,9 @@ What it does, in order; any failure exits non-zero:
    ``pairwise_sqdist`` (timed only; the port never calls them); and
    ``pairwise_sqdist`` beside the card's own write of its (Q, M) result
    (``fill_``, cold and warm), the floor of a write-bound kernel; and
-   ``anneal_walk`` at path A's round, Fig. 4's sweep and ``fleet_chains``'
-   bucket on the inputs those paths gave it, its bytes counted from what
+   ``anneal_walk`` at path A's round, Fig. 4's sweep, ``fleet_chains``'
+   bucket, path B's round and path H's largest round (its fleet bucket)
+   on the inputs those paths gave it, its bytes counted from what
    each walk looked up, beside its latency bound (S dependent loads at
    the latency a one-thread pointer chase measures on the card, the
    probe ``kernels/probes/dependent_load.cu``) and the time of its first
@@ -101,8 +115,9 @@ With ``--profile`` it also traces a few more rounds of paths A and B with
 ``torch.profiler`` (after step 5) and one path-B table build (206
 ``fused_interp`` launches; its wall time, device busy time, idle share and
 ``fused_interp``'s share of the device time), one burst of paths C's, E's
-and F's workloads at batch 16 (in step 6) and three path-D train steps (in
-step 7), and prints the device's busy time and idle share of each.
+and F's workloads at batch 16 (in step 6), the first 8 ticks of path H's
+1,024-tenant replay (in step 5c) and three path-D train steps (in step
+7), and prints the device's busy time and idle share of each.
 
 It exits with code 2 and prints no result when there is no CUDA device,
 or when it stands in a directory without the rest of the repository.
@@ -114,6 +129,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import json
 import os
 import re
@@ -1398,14 +1414,17 @@ G_TENANTS, G_FLEET_STEPS = 1000, 32
 
 
 @contextlib.contextmanager
-def capture_walk(ops, store: dict, label: str):
+def capture_walk(ops, store: dict, label: str, largest: bool = False):
     """While open, every ``ops.anneal_walk`` call also leaves its inputs
-    in ``store[label]`` (the last call's), so the kernel can be checked
-    and timed later on the very tensors a path gave it."""
+    in ``store[label]`` (the last call's; with ``largest``, the call of
+    the most chains), so the kernel can be checked and timed later on the
+    very tensors a path gave it."""
     real = ops.anneal_walk
 
     def spy(*args, **kw):
-        store[label] = (args, kw)
+        if not largest or label not in store \
+                or args[3].shape[0] > store[label][0][3].shape[0]:
+            store[label] = (args, kw)
         return real(*args, **kw)
 
     ops.anneal_walk = spy
@@ -1744,6 +1763,257 @@ def path_g(torch, ops, dev, captured) -> tuple[dict, dict]:
     return launches, timing
 
 
+# -- path H: the multi-tenant fleet --------------------------------------------
+
+#: path H's workloads, ``repro_torch.figures.trace_fleet``'s controller at
+#: the reference's constants (``benchmarks/trace_fleet.py:46-52``): (a) its
+#: smoke replay, 64 tenants over 600 s of trace seed 64 (the one
+#: ``BENCH_trace.json`` holds), on the card and on the host; (b) its full
+#: configuration, 1,024 tenants (trace and controller seed 1,024), and the
+#: 64-tenant baseline, over the reference's 3,600 s, ``H_TURNS`` turns of
+#: each in alternation, each begun after a full collection (a size's wall
+#: time is its fastest turn's: a round is host work, and the host's clock
+#: varies from turn to turn)
+H_SMOKE = (64, 600.0)
+H_TENANTS, H_HORIZON_S = 1024, 3600.0
+H_TURNS = 5
+H_PROFILE_TICKS = 8
+
+
+@contextlib.contextmanager
+def counted_rounds(torch, ops, fleet, log: list):
+    """While open, each ``fleet.round()`` appends (chains annealed,
+    ``anneal_walk`` launches, synchronizing CUDA calls) to ``log``.  The
+    last are counted by torch's sync debug mode: each call where the host
+    waits on the card, a read-back or a blocking copy."""
+    import warnings
+
+    real = fleet.round
+
+    def counted():
+        n0 = ops.LAUNCHES["anneal_walk"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = real()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+        log.append((fleet.last_annealed, ops.LAUNCHES["anneal_walk"] - n0,
+                    syncs))
+        return out
+
+    fleet.round = counted
+    try:
+        yield
+    finally:
+        del fleet.round
+
+
+class Ticks:
+    """A trace replay advanced one tick at a time (``round()``): the
+    tick's events applied, then one fleet round, as
+    ``TraceReplayController.replay`` does each tick."""
+
+    def __init__(self, ctl):
+        from repro_torch.workloads.trace import replay_ticks
+
+        self.ctl = ctl
+        self.ticks = replay_ticks(ctl.trace, ctl.control_period_s)
+
+    def round(self):
+        _, events = next(self.ticks)
+        self.ctl._apply_events(events)
+        return self.ctl.fleet.round()
+
+
+def decision_log(ctl) -> list[tuple]:
+    """A replay's FleetDecision log, every field as plain values."""
+    import dataclasses
+
+    return [dataclasses.astuple(d) for d in ctl.fleet.decisions]
+
+
+def path_h(torch, ops, dev, captured, profile: bool) -> tuple[dict, dict]:
+    """Path H: the multi-tenant fleet.  (a) ``trace_fleet``'s smoke replay
+    (64 tenants, 600 s, ``BENCH_trace.json``'s trace) on the card: SLO
+    attainment 1.0 and no violation round, as the reference's; the same
+    replay on the host in this process, its FleetDecision log equal field
+    for field.  (b) The full configuration, 1,024 tenants over
+    ``H_HORIZON_S``, and the 64-tenant baseline over the same horizon,
+    ``H_TURNS`` turns of each in alternation: the reference's four claims
+    (no violation in the final quarter, SLO attainment >= 0.8, < 60% of
+    tenant-rounds annealed, wall time <= half the 16x tenant ratio, each
+    size's fastest turn), one ``anneal_walk`` launch in each round that
+    annealed a chain (none in the others) and at most one synchronizing
+    call (the read-back) a round.  Returns (launches, timings)."""
+    import numpy as np
+
+    from repro_torch.core import chain_bucket
+    from repro_torch.figures import trace_fleet as tf
+
+    timing = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t_h = time.perf_counter()
+
+    def replay(T, horizon, device, keep_log=False, capture=None):
+        ctl = tf.controller(T, horizon, seed=T, keep_decision_log=keep_log,
+                            device=device)
+        # each replay starts from the same collector state: no garbage or
+        # promotion count carried over from the last one
+        gc.collect()
+        log = []
+        with (counted_rounds(torch, ops, ctl.fleet, log) if device == "cuda"
+              else contextlib.nullcontext()), \
+                (capture_walk(ops, captured, capture, largest=True)
+                 if capture else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            summary = ctl.replay()
+            total = time.perf_counter() - t0
+        return ctl, summary, log, total
+
+    def check_rounds(label, ctl, log):
+        walks_ok = all(w == (a > 0) for a, w, _ in log)
+        syncs = [k for _, _, k in log]
+        check(len(log) == len(ctl.rounds) and walks_ok,
+              f"path H {label}: one anneal_walk launch in each of the "
+              f"{sum(a > 0 for a, _, _ in log)} rounds that annealed a "
+              f"chain, none in the other {sum(a == 0 for a, _, _ in log)}")
+        check(max(syncs) <= 1,
+              f"path H {label}: at most one synchronizing call a round "
+              f"(the read-back): {sum(syncs)} in {len(log)} rounds, at "
+              f"most {max(syncs)}")
+
+    # (a) the smoke replay, card against host
+    T, horizon = H_SMOKE
+    ctl, summary, log, total = replay(T, horizon, "cuda", keep_log=True)
+    host, host_summary, _, host_total = replay(T, horizon, "cpu",
+                                               keep_log=True)
+    timing["smoke_s"], timing["smoke_host_s"] = total, host_total
+    print(f"path H (a): {T} tenants over {horizon:.0f} s on the card: "
+          f"{summary['rounds']} rounds, {summary['tenant_rounds']} "
+          f"tenant-rounds, annealed fraction "
+          f"{summary['annealed_fraction']:.4f}, peak "
+          f"{summary['peak_tenants']} tenants, events "
+          f"{summary['events_applied']}, wall {summary['wall_s']:.3f} s "
+          f"in rounds, {total:.3f} s in all (host: "
+          f"{host_summary['wall_s']:.3f} s in rounds)")
+    check(summary["slo_attainment"] == 1.0
+          and summary["violation_rounds"] == 0,
+          f"path H (a): SLO attainment {summary['slo_attainment']} and "
+          f"{summary['violation_rounds']} violation rounds, as the "
+          f"reference's BENCH_trace.json (1.0, 0)")
+    same = decision_log(ctl) == decision_log(host)
+    check(same and {k: v for k, v in summary.items() if k != "wall_s"}
+          == {k: v for k, v in host_summary.items() if k != "wall_s"},
+          f"path H (a): the card's {len(ctl.fleet.decisions)} decisions "
+          f"equal the host's field for field, and so does the summary")
+    check_rounds("(a)", ctl, log)
+
+    # (b) the full configuration and its baseline over the same horizon,
+    # in alternating turns (64, 1,024, 64, ...): each size's wall time is
+    # its fastest turn's, the host's clock being noisy at a few ms a round
+    walls = {T: [] for T in (H_SMOKE[0], H_TENANTS)}
+    for turn, T in enumerate(H_TURNS * (H_SMOKE[0], H_TENANTS)):
+        ctl, summary, log, total = replay(
+            T, H_HORIZON_S, "cuda",
+            capture="path H round" if turn == 1 else None)
+        walls[T].append(summary["wall_s"])
+        tail = [r["violation"] for r in
+                ctl.rounds[-max(len(ctl.rounds) // 4, 1):]]
+        annealed = [a for a, _, _ in log if a]
+        print(f"path H (b), turn {turn // 2 + 1} of {H_TURNS}: {T} "
+              f"tenants over {H_HORIZON_S:.0f} s: "
+              f"{summary['rounds']} rounds, {summary['tenant_rounds']} "
+              f"tenant-rounds, peak {summary['peak_tenants']}, annealed "
+              f"fraction {summary['annealed_fraction']:.4f} (chains a "
+              f"round {min(annealed, default=0)}-{max(annealed, default=0)}"
+              f", buckets {sorted({chain_bucket(a) for a in annealed})}), "
+              f"SLO attainment {summary['slo_attainment']:.4f}, violation "
+              f"rounds {summary['violation_rounds']}; wall "
+              f"{summary['wall_s']:.3f} s in rounds "
+              f"({1e3 * summary['wall_s'] / summary['rounds']:.2f} ms a "
+              f"round), {total:.3f} s in all")
+        timing[f"wall_{T}_s"] = min(walls[T])
+        timing[f"total_{T}_s"] = total
+        timing[f"rounds_{T}"] = summary["rounds"]
+        if T != H_TENANTS:
+            continue
+        check(float(np.sum(tail)) == 0.0,
+              f"path H (b): T={T}: zero aggregate violations in the final "
+              f"25% of rounds")
+        check(summary["slo_attainment"] >= 0.8,
+              f"path H (b): T={T}: SLO attainment under churn >= 0.8 "
+              f"({summary['slo_attainment']:.4f})")
+        check(summary["annealed_fraction"] < 0.6,
+              f"path H (b): T={T}: incremental rounds anneal < 60% of "
+              f"tenant-rounds ({summary['annealed_fraction']:.4f})")
+        check_rounds(f"(b) T={T}", ctl, log)
+    lin = H_TENANTS / H_SMOKE[0]
+    ratio = timing[f"wall_{H_TENANTS}_s"] / timing[f"wall_{H_SMOKE[0]}_s"]
+    timing["ratio"] = ratio
+    check(ratio <= lin / 2,
+          f"path H (b): the {H_TENANTS}-tenant replay sub-linear against "
+          f"{H_SMOKE[0]} tenants: wall ratio {ratio:.2f}x <= "
+          f"{lin / 2:.0f}x (half the {lin:.0f}x tenant ratio; the fastest "
+          f"of {H_TURNS} turns each, every turn's wall in rounds: "
+          f"{H_TENANTS} tenants {walls[H_TENANTS]} s, {H_SMOKE[0]} "
+          f"{walls[H_SMOKE[0]]} s; turn by turn "
+          f"{[a / b for a, b in zip(walls[H_TENANTS], walls[H_SMOKE[0]])]})")
+    launches = dict(ops.LAUNCHES)
+    timing["total_s"] = time.perf_counter() - t_h
+    args = captured["path H round"][0]
+    print(f"path H: launches {launches}; the largest walk "
+          f"{walk_shape(args)}; {timing['total_s']:.1f} s")
+
+    if profile:
+        # the first ticks of the 1,024-tenant replay (the founding
+        # cohort's settle rounds, then incremental ones), untraced, then
+        # traced on a fresh controller
+        def ticks():
+            return Ticks(tf.controller(H_TENANTS, H_HORIZON_S,
+                                       seed=H_TENANTS,
+                                       keep_decision_log=False,
+                                       device="cuda"))
+
+        run = ticks()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(H_PROFILE_TICKS):
+            run.round()
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3 / H_PROFILE_TICKS
+        profile_rounds(torch, ticks(), H_PROFILE_TICKS,
+                       f"path H ({H_TENANTS} tenants, ticks "
+                       f"0-{H_PROFILE_TICKS - 1})", untraced_ms,
+                       share_of="anneal_walk")
+        # where a round's host time goes: the fleet's own spans (the
+        # telemetry span recorder, armed for one more replay of each size)
+        from repro_torch.telemetry import spans
+
+        for T in (H_SMOKE[0], H_TENANTS):
+            ctl = tf.controller(T, H_HORIZON_S, seed=T,
+                                keep_decision_log=False, device="cuda")
+            spans.enable(spans.SpanRecorder(capacity=1 << 20))
+            try:
+                summary = ctl.replay()
+            finally:
+                rec = spans.disable()
+            per = {}
+            for name, _, _, dur, *_ in rec.spans():
+                per[name] = per.get(name, 0.0) + dur / 1e3
+            rounds = summary["rounds"]
+            print(f"profile path H ({T} tenants, {rounds} rounds, spans): "
+                  + ", ".join(f"{k} {v / rounds:.3f}"
+                              for k, v in sorted(per.items()))
+                  + f" ms a round; the round's own wall "
+                  f"{1e3 * summary['wall_s'] / rounds:.3f} ms")
+    return launches, timing
+
+
 #: Bytes the card's memory moves at once (an L2 sector).
 SECTOR = 32
 
@@ -1864,7 +2134,8 @@ def time_walk(torch, ops, ref, build, captured) -> list[dict]:
     for label, iters, plain_iters in (("path A round", 200, 10),
                                       ("Fig. 4 sweep", 20, 2),
                                       ("fleet_chains bucket", 200, 10),
-                                      ("path B round", 200, 10)):
+                                      ("path B round", 200, 10),
+                                      ("path H round", 200, 10)):
         args, kw = captured[label]
         inits, _, _, axis = args[:4]
         C, S = axis.shape
@@ -2141,6 +2412,9 @@ def main(argv: list[str]) -> int:
     print(f"path G with its kernel checks: "
           f"{time.perf_counter() - t_g:.1f} s")
 
+    # -- 5c. path H: the multi-tenant fleet ---------------------------------
+    launches_h, timing_h = path_h(torch, ops, dev, captured, profile)
+
     # -- 6. paths C, E, F: the annealed serve loop at full size ------------
     from repro_torch.configs import get_config
 
@@ -2257,7 +2531,12 @@ def main(argv: list[str]) -> int:
           f"{timing_g['total_s']:.1f} s (figures {timing_g['figures_s']:.1f}"
           f" s, plans {timing_g['plan_exhaustive_s']:.3f} and "
           f"{timing_g['plan_surrogate_s']:.3f} s, {G_SUBMITS} jobs "
-          f"{timing_g['submits_s']:.3f} s)")
+          f"{timing_g['submits_s']:.3f} s); path H "
+          f"{timing_h['total_s']:.1f} s ({H_TENANTS} tenants: "
+          f"{timing_h[f'rounds_{H_TENANTS}']} rounds in "
+          f"{timing_h[f'wall_{H_TENANTS}_s']:.3f} s, "
+          f"{timing_h['ratio']:.2f}x the {H_SMOKE[0]}-tenant replay's "
+          f"{timing_h[f'wall_{H_SMOKE[0]}_s']:.3f} s)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- 10. the record lines -------------------------------------------------
@@ -2298,7 +2577,8 @@ def main(argv: list[str]) -> int:
                         "src/repro/core/annealing.py:447 (_chain_nd_core, "
                         "lax.scan; not a pallas_call)",
                         launches_a["anneal_walk"] + launches_b["anneal_walk"]
-                        + launches_g["anneal_walk"]),
+                        + launches_g["anneal_walk"]
+                        + launches_h["anneal_walk"]),
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():

@@ -23,8 +23,10 @@ build is timed with a cold L2 (``chip_smoke.time_cold_ms``), in turns:
 earlier, this, this, earlier; ``pairwise_sqdist`` also beside the card's
 own cold write of its (Q, M) result (``fill_``, timed between the turns).
 ``anneal_walk`` is timed at five path shapes (``chip_smoke.walk_cases``:
-path A's and path B's rounds, Figs. 4's and 5's sweeps, the bucket) and
-four large fleets (``WALK_WIDE``), also with its lookups unstaged and with
+path A's and path B's rounds, Figs. 4's and 5's sweeps, the bucket), at
+the fleet's own buckets (``FLEET_BUCKETS``: path H's first round at 1,024
+tenants and its first 4, 16, 32 and 128 chains) and at four large fleets
+(``WALK_WIDE``), also with its lookups unstaged and with
 the other window (the plan overridden), each checked bit-equal and timed
 in turns with the planned kernel; then inside path A's and path B's
 rounds (traced, the L2 as a round leaves it, no flush), the earlier build
@@ -87,6 +89,36 @@ WALK_WIDE = (("Fig. 4 sweep x50", "Fig. 4 sweep", 50),
              ("fleet_chains bucket x64", "fleet_chains bucket", 64))
 
 
+#: the fleet's own buckets: chains of path H's first round (1,024 tenants
+#: of ``trace_fleet``'s full configuration, x 32 steps over the 64-state
+#: EC2 table with coupling rows)
+FLEET_BUCKETS = (4, 16, 32, 128, 1024)
+
+
+def fleet_walks(torch, ops) -> dict:
+    """``anneal_walk``'s inputs at ``FLEET_BUCKETS``: the first round of
+    ``trace_fleet``'s 1,024-tenant replay (the founding cohort, all
+    annealed), and its first 4, 16, 32 and 128 chains."""
+    from repro_torch.figures import trace_fleet as tf
+
+    store = {}
+    ctl = tf.controller(1024, 600.0, seed=1024, keep_decision_log=False,
+                        device="cuda")
+    with cs.capture_walk(ops, store, "fleet"):
+        ctl.fleet.round()
+    args, kw = store["fleet"]
+    cs.check(args[3].shape[0] == max(FLEET_BUCKETS),
+             f"path H's first round walks {args[3].shape[0]} chains")
+    out = {}
+    for k in FLEET_BUCKETS:
+        kw_k = {key: (v[:k].contiguous() if key == "extra" else v)
+                for key, v in kw.items()}
+        out[f"path H bucket {k}"] = (
+            tuple(a[:k].contiguous() for a in args), kw_k)
+    torch.cuda.synchronize()
+    return out
+
+
 def tile_walk(args, kw, k: int):
     """A walk's inputs with its chains repeated ``k`` times."""
     def rep(x):
@@ -121,14 +153,16 @@ def walk_in_round(torch, ctrl, n: int) -> float:
 def compare_walk(torch, ops, ref, dev, earlier_lib) -> None:
     """``anneal_walk``: the earlier build, this one, and this one with its
     lookups unstaged and with the other window (32 and 64 steps swapped),
-    at the five shapes of ``walk_cases`` and at fleets of 16,000-65,536
-    chains (``WALK_WIDE``), cold; then the earlier build and this one
+    at the five shapes of ``walk_cases``, the fleet's buckets
+    (``fleet_walks``) and fleets of 16,000-65,536 chains (``WALK_WIDE``),
+    cold; then the earlier build and this one
     inside path A's and path B's rounds (``walk_in_round``)."""
     from repro_torch.core import sizing as sz
     from repro_torch.core.surrogate import SurrogateSource
     from repro_torch.workloads import microservice as ms
 
     cases = cs.walk_cases(torch, ops, dev)
+    cases.update(fleet_walks(torch, ops))
     for label, base, k in WALK_WIDE:
         cases[label] = tile_walk(*cases[base], k)
     mine = (ops._fns["anneal_walk"], ops._walk_set_plan())

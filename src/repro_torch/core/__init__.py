@@ -1,6 +1,7 @@
 # The paper's primary contribution — online cluster resource management by
 # simulated annealing — ported to PyTorch.  This slice carries the
-# container-sizing loop and the single-tenant procurement loop end to end;
+# container-sizing loop, the single-tenant procurement loop and the
+# multi-tenant fleet (FleetController, TraceReplayController) end to end;
 # ROADMAP.md lists what waits.
 from .annealing import (
     DRAW_KEYS,
@@ -19,6 +20,7 @@ from .annealing import (
     jobs_to_min_vs_tau,
     jobs_to_min_vs_tau_fleet,
     random_valid_states,
+    tenant_draws,
 )
 from .change_detect import BatchedPageHinkley, PageHinkley, WindowedZScore
 from .evalpipe import (
@@ -40,6 +42,7 @@ from .costmodel import (
     StepCosts,
     objective_of,
 )
+from .fleet import FleetController, FleetDecision, TenantSpec
 from .landscape import (
     BLEND_AFTER,
     BLEND_BEFORE,
@@ -123,19 +126,21 @@ from .surrogate import (
     window_space,
 )
 from .tabu import TabuMemory
+from .trace_replay import TraceReplayController
 
 __all__ = [
     "DRAW_KEYS", "Annealer", "ChainSnapshot", "Step",
     "acceptance_probability", "anneal_chain", "anneal_chain_dynamic",
     "anneal_chain_nd", "anneal_fleet", "chain_accept_stats", "chain_bucket",
     "first_hit_time", "fleet_chains", "jobs_to_min_vs_tau",
-    "jobs_to_min_vs_tau_fleet", "random_valid_states",
+    "jobs_to_min_vs_tau_fleet", "random_valid_states", "tenant_draws",
     "BatchedPageHinkley", "PageHinkley", "WindowedZScore",
     "EvalDispatcher", "EvalRequest", "EvalResult", "PipelineStats",
     "ResolvedStep", "SpeculativePipeline", "StorePredictor",
     "map_pool", "measure_requests",
     "Evaluator", "MeasuredEvaluator", "RooflineEvaluator",
     "SimulatedEvaluator", "StepCosts", "objective_of",
+    "FleetController", "FleetDecision", "TenantSpec",
     "BLEND_AFTER", "BLEND_BEFORE", "HIBENCH_JOBS", "JobModel",
     "bimodal_landscape", "blended_surface", "changed_landscape",
     "dnn_epoch_landscape", "tabulate", "tabulate_dynamic",
@@ -158,7 +163,7 @@ __all__ = [
     "ExhaustiveSource", "MeasurementStore", "ObjectiveSource",
     "SpaceEncoding", "SurrogateModel", "SurrogateSource",
     "expected_improvement", "host_interp", "window_space",
-    "TabuMemory",
+    "TabuMemory", "TraceReplayController",
 ]
 
 

@@ -319,6 +319,81 @@ def _draw(generator, enc: EncodedSpace, C: int, S: int, noise: bool,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Per-tenant draw streams: a counter-based hash of (seed, round, stream id,
+# step), the counterpart of the reference's fold_in(fold_in(key, r), id).
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+#: The hash's multipliers: odd and below 2^31, so a 32-bit word times one
+#: stays below 2^63 and every int64 product is exact on any device.
+_MUL = (0x7FEB352D, 0x21F0AAAD)
+#: The words a step draws: proposal axis, direction, pick, acceptance.
+_WORDS = 4
+
+
+def _mix32_int(x: int) -> int:
+    """:func:`_mix32` on a Python int: the per-call words, made on the host
+    without a tensor op."""
+    x &= _M32
+    x ^= x >> 16
+    x = (x * _MUL[0]) & _M32
+    x ^= x >> 15
+    x = (x * _MUL[1]) & _M32
+    return x ^ (x >> 15)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit mixer (xorshift-multiply rounds) on int64
+    tensors holding 32-bit words."""
+    x = x ^ (x >> 16)
+    x = (x * _MUL[0]) & _M32
+    x = x ^ (x >> 15)
+    x = (x * _MUL[1]) & _M32
+    return x ^ (x >> 15)
+
+
+def tenant_draws(seed: int, round: int, stream_ids, enc, n_steps: int, *,
+                 device: str | torch.device = "cuda"
+                 ) -> dict[str, torch.Tensor]:
+    """The walk's :data:`DRAW_KEYS` arrays, each (A, n_steps), for A
+    chains at once: row ``a`` depends only on ``(seed, round,
+    stream_ids[a], step)`` — not on A, on the row's place or on the other
+    ids — so a tenant's walk is the same whoever else is in the fleet.
+
+    Every word is a counter-based hash of those values in int64 tensor
+    ops (32-bit words, products below 2^63), so the arrays are
+    bit-identical on the CPU and on the card; a few dozen launches
+    whatever A is.  From each step's four words: ``axis`` the high word
+    of ``w * ndim``, ``up`` the top bit, ``pick`` the high word of ``w *
+    max(n_axis - 1, 1)``, ``uniform`` the top 24 bits times 2^-24.
+    ``stream_ids`` are ints in [0, 2^32) (array-like, or an int64 tensor
+    on ``device``); ``seed`` is in [0, 2^64), ``round`` in [0, 2^32)."""
+    dev = resolve_device(device)
+    enc = _as_encoded(enc)
+    S = int(n_steps)
+    seed = int(seed)
+    if not (0 <= seed < 1 << 64 and 0 <= int(round) < 1 << 32):
+        raise ValueError(f"seed {seed} or round {round} out of range")
+    base = 0x243F6A88
+    for word in (seed & _M32, seed >> 32, int(round)):
+        base = _mix32_int(base ^ word)
+    ids = (stream_ids.to(device=dev, dtype=torch.int64)
+           if isinstance(stream_ids, torch.Tensor)
+           else torch.from_numpy(np.asarray(stream_ids, np.int64)
+                                 .reshape(-1)).to(dev, non_blocking=True))
+    key = _mix32(_mix32((ids & _M32) ^ base))             # (A,)
+    ctr = _mix32(torch.arange(S * _WORDS, device=dev) * 0x9E3779B1 & _M32)
+    w = _mix32(_mix32(key[:, None] ^ ctr[None, :])).reshape(-1, S, _WORDS)
+    sizes = torch.from_numpy(np.maximum(np.asarray(enc.shape, np.int64) - 1,
+                                        1)).to(dev, non_blocking=True)
+    axis = (w[..., 0] * enc.ndim) >> 32
+    return {"axis": axis,
+            "up": (w[..., 1] >> 31).bool(),
+            "pick": (w[..., 2] * sizes[axis]) >> 32,
+            "uniform": (w[..., 3] >> 8).to(torch.float32) * 2.0 ** -24}
+
+
 def anneal_fleet(
     generator: torch.Generator | None,
     space: ConfigSpace | EncodedSpace,

@@ -120,14 +120,28 @@ class SimulatedEvaluator(Evaluator):
 
     def __post_init__(self) -> None:
         self._rng = np.random.default_rng(self.seed)
+        # noise-free measurements by (job, family, cores), with the job
+        # model and catalog they came from: a fleet measures one job a
+        # tenant a round, mostly on a few states
+        self._memo: dict[tuple, tuple] = {}
 
     def measure(self, config: ClusterConfig, job: str, n: int) -> Measurement:
-        t = self.jobs[job].exec_time(
+        model = self.jobs[job]
+        if self.noise_std <= 0:
+            key = (job, config.instance_type, config.total_cores)
+            hit = self._memo.get(key)
+            if hit is not None and hit[0] is model \
+                    and hit[1] is self.catalog:
+                return hit[2]
+        t = model.exec_time(
             config.instance_type, config.total_cores, self.catalog)
         if self.noise_std > 0:
             t *= float(np.exp(self._rng.normal(0.0, self.noise_std)))
         c = self.catalog.cost(config.instance_type, config.total_cores, t)
-        return Measurement(exec_time_s=t, cost_usd=c)
+        m = Measurement(exec_time_s=t, cost_usd=c)
+        if self.noise_std <= 0:
+            self._memo[key] = (model, self.catalog, m)
+        return m
 
 
 @dataclasses.dataclass

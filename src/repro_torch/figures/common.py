@@ -69,13 +69,18 @@ class Bench:
         return res
 
 
-def main(benches: Sequence[Callable[[str], dict]],
-         argv: Sequence[str] | None = None) -> int:
-    """Run ``benches`` on the ``--device`` given; 0 when every check
+def main(benches: Sequence[Callable[..., dict]],
+         argv: Sequence[str] | None = None, smoke: bool = False) -> int:
+    """Run ``benches`` on the ``--device`` given (with ``smoke``, each
+    also takes the ``--smoke`` flag as ``smoke=``); 0 when every check
     passed, else 1."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    if smoke:
+        ap.add_argument("--smoke", action="store_true",
+                        help="the reference's reduced configuration")
     args = ap.parse_args(argv)
+    kw = {"smoke": args.smoke} if smoke else {}
     if args.device == "cuda":
         import torch
 
@@ -83,7 +88,7 @@ def main(benches: Sequence[Callable[[str], dict]],
 
         resolve_device("cuda")
         print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    results = [bench(args.device) for bench in benches]
+    results = [bench(args.device, **kw) for bench in benches]
     n_ok = sum(r["ok"] for r in results)
     n_checks = sum(len(r["checks"]) for r in results)
     n_pass = sum(c["ok"] for r in results for c in r["checks"])

@@ -1,7 +1,10 @@
 """Job streams, blends, arrival processes and the sojourn-time queue.
 
 A numpy copy of the reference package's ``workloads/simulator.py``,
-pinned bit for bit by ``tests/test_torch_numpy_copies.py``.
+pinned bit for bit by ``tests/test_torch_numpy_copies.py`` (the one
+difference is inside :class:`JobStream`, which inlines numpy's own
+weighted choice: the same draws, a fraction of the host time, which a
+1,024-tenant fleet pays once a tenant a round).
 
 Paper constructs reproduced here:
   * a *job stream* of blended types (sec. 3): each arriving job is drawn
@@ -17,8 +20,10 @@ Paper constructs reproduced here:
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import heapq
+import types
 from typing import Callable, Iterator, Mapping, Sequence
 
 import numpy as np
@@ -43,13 +48,27 @@ class JobStream:
         names = list(blend)
         w = np.asarray([blend[k] for k in names], np.float64)
         self._names, self._w = names, w / w.sum()
+        # numpy's own ``Generator.choice(n, p=w)``, inlined: the cdf,
+        # normalized by its last entry, searched (to the right) with one
+        # ``random()`` draw — the same draw and the same pick, without
+        # choice's per-call checks.  Weights choice refuses leave no cdf,
+        # and the next draw raises as the reference's does.
+        self._cdf = None
+        if (len(names) and np.isfinite(self._w).all()
+                and (self._w >= 0).all()):
+            cdf = self._w.cumsum()
+            cdf /= cdf[-1]
+            self._cdf = cdf.tolist()
 
     def __iter__(self) -> Iterator[str]:
         return self
 
     def __next__(self) -> str:
-        job = self._names[int(self._rng.choice(len(self._names),
-                                               p=self._w))]
+        if self._cdf is None:
+            raise ValueError(
+                f"blend weights {dict(zip(self._names, self._w.tolist()))} "
+                f"are empty, negative or not finite")
+        job = self._names[bisect.bisect_right(self._cdf, self._rng.random())]
         self.n += 1
         return job
 
@@ -160,6 +179,15 @@ class MultiTenantStream:
         """The blend tenant ``name`` draws from at the CURRENT round."""
         self._apply_changes()
         return dict(self._blends[name])
+
+    def current_blends(self) -> Mapping[str, dict[str, float]]:
+        """Every tenant's blend at the CURRENT round, by name (a read-only
+        view of the live dicts, not copies).  The stream REPLACES a
+        tenant's blend dict whenever the blend changes and never mutates
+        one, so a caller may tell a changed blend by identity; callers
+        must not mutate them either."""
+        self._apply_changes()
+        return types.MappingProxyType(self._blends)
 
     def _apply_changes(self) -> None:
         for t in self.tenants:

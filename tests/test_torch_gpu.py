@@ -1432,3 +1432,64 @@ def test_fleet_chains_padding_is_bit_identical_on_card(cuda):
     assert ops.LAUNCHES["anneal_walk"] == n0 + 2
     for a, b in zip(padded, flat):
         assert a.shape[0] == C and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The fleet: per-tenant draw streams and rounds, card against host.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 16), (7, 1, 3, 2), (65_536,)])
+def test_tenant_draws_bit_identical_on_card_and_host(cuda, shape):
+    import numpy as np
+
+    from repro_torch.core import tenant_draws
+    from repro_torch.core.state import EncodedSpace
+
+    enc = EncodedSpace(shape, (False,) * len(shape))
+    ids = np.concatenate([np.arange(1000), [2**31 - 1, 2**32 - 1]])
+    for seed, r in ((0, 0), (1024, 117), (2**63 + 5, 2**32 - 1)):
+        host = tenant_draws(seed, r, ids, enc, 33, device="cpu")
+        card = tenant_draws(seed, r, torch.as_tensor(ids, device=cuda), enc,
+                            33, device=cuda)
+        for k in host:
+            assert card[k].device.type == "cuda"
+            assert torch.equal(card[k].cpu(), host[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("incremental", [False, True])
+def test_fleet_rounds_on_card_decide_as_on_host(cuda, incremental):
+    import dataclasses
+
+    from repro_torch.core import (EC2_CATALOG_ADJUSTED, Objective,
+                                  PenalizedObjective, TraceReplayController,
+                                  make_ec2_space)
+    from repro_torch.core.costmodel import SimulatedEvaluator
+    from repro_torch.workloads.trace import synthetic_trace
+
+    def replay(device):
+        T = 24
+        cat = EC2_CATALOG_ADJUSTED.with_capacities(
+            {f: 12.0 * T for f in EC2_CATALOG_ADJUSTED.names()})
+        ev = SimulatedEvaluator(cat)
+        ctl = TraceReplayController(
+            synthetic_trace(sorted(ev.jobs), n_tenants=T, horizon_s=420.0,
+                            seed=5, n_profiles=12),
+            make_ec2_space(cat, core_counts=tuple(range(4, 132, 8))), cat,
+            ev, objective=PenalizedObjective(Objective(lambda_cost=200.0),
+                                             weight=25.0),
+            budget_usd_hr=1.6 * T, steps_per_round=32, slo_s=3600.0, seed=5,
+            incremental=incremental, keep_decision_log=True, device=device)
+        n0 = ops.LAUNCHES["anneal_walk"]
+        ctl.replay()
+        walks = ops.LAUNCHES["anneal_walk"] - n0
+        return ([(d.round, d.tenant, d.action, dataclasses.astuple(d.config),
+                  d.y, d.accepted, d.explored, d.tau, d.reheated, d.violation)
+                 for d in ctl.fleet.decisions], ctl, walks)
+
+    host, _, _ = replay("cpu")
+    card, ctl, walks = replay("cuda")
+    assert card == host
+    assert walks == sum(r["n_annealed"] > 0 for r in ctl.rounds)

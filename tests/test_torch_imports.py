@@ -51,7 +51,10 @@ def test_every_port_module_imports_without_jax_or_reference():
                 "runtime.loss", "runtime.train", "runtime.fault_tolerance",
                 "optim.optimizer", "optim.compression",
                 "checkpoint.checkpointer", "launch.train",
-                "launch.train_anneal", "models.rglru", "models.rwkv6"):
+                "launch.train_anneal", "models.rglru", "models.rwkv6",
+                "core.fleet", "core.trace_replay", "workloads.trace",
+                "figures.trace_fleet", "figures.fleet_arbitration",
+                "figures.pipeline_overlap"):
         assert f"repro_torch.{mod}" in names
     assert leaked == "[]"
 
@@ -66,7 +69,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
-                            ROOT / "compare_kernels.py"],
+                            ROOT / "compare_kernels.py",
+                            ROOT / "fleet_host_costs.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_in_source(path):
     bad = [m for m in _imports(path)

@@ -2,7 +2,8 @@
 draws each JAX chain entry point makes from its key, in the port's
 ``draws=`` form (``repro_torch.core.annealing.DRAW_KEYS``), so that the
 port's walks can be compared with JAX's step for step
-(``test_torch_chains.py``, ``test_torch_procurement.py``).  The tests
+(``test_torch_chains.py``, ``test_torch_procurement.py``,
+``test_torch_fleet.py``, ``test_torch_trace_replay.py``).  The tests
 here pin the replays' layout."""
 
 import functools
@@ -88,3 +89,21 @@ def test_replayed_draws_have_the_walks_layout():
     limit = np.maximum(np.asarray((4, 1, 3))[nd["axis"]] - 1, 1)
     assert ((0 <= nd["pick"]) & (nd["pick"] < limit)).all()
     assert ((0 <= nd["uniform"]) & (nd["uniform"] < 1)).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _tenant_chain_draws(seed, r, stream_id, shape, S):
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.key(seed), r),
+                             np.uint32(stream_id))
+    return numpy_draws(nd_chain_draws(key, shape, S))
+
+
+def fleet_draws(seed, r, ids, enc, S, *, device):
+    """``FleetController``'s per-tenant draws as the reference makes them:
+    each chain on ``fold_in(fold_in(key(seed), r), id)``, ``_chain_nd_core``'s
+    schedule; the signature of ``repro_torch.core.annealing.tenant_draws``,
+    which a test replaces with this."""
+    rows = [_tenant_chain_draws(int(seed), int(r), int(i), tuple(enc.shape),
+                                int(S)) for i in np.asarray(ids)]
+    return {k: np.stack([d[k] for d in rows])
+            for k in ("axis", "up", "pick", "uniform")}

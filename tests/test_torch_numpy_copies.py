@@ -16,6 +16,7 @@ from repro.core import objective as ref_obj
 from repro.core import state as ref_state
 from repro.core import surrogate as ref_sur
 from repro.workloads import microservice as ref_ms
+from repro.workloads import trace as ref_trace
 from repro_torch import configs as pt_configs
 from repro_torch.core import change_detect as pt_cd
 from repro_torch.core import landscape as pt_land
@@ -24,6 +25,7 @@ from repro_torch.core import state as pt_state
 from repro_torch.core import surrogate as pt_sur
 from repro_torch.workloads import microservice as pt_ms
 from repro_torch.workloads import simulator as pt_sim
+from repro_torch.workloads import trace as pt_trace
 
 
 def _space(mod, valid: bool):
@@ -205,6 +207,31 @@ def test_job_streams_are_identical():
     assert [next(ja) for _ in range(200)] == [next(jb) for _ in range(200)]
     assert ref_sim.blended_stream(blend, {"c": 1.0}, 40, 100, seed=1) \
         == pt_sim.blended_stream(blend, {"c": 1.0}, 40, 100, seed=1)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_job_stream_draws_are_numpys_weighted_choice(seed):
+    """The port's JobStream inlines ``Generator.choice(n, p=w)``: the same
+    jobs and the same generator state after them, for blends of 1-6 jobs
+    (tiny and zero weights included), before and after a set_blend."""
+    rng = np.random.default_rng(seed)
+    names = [f"j{i}" for i in range(int(rng.integers(1, 7)))]
+    w = rng.dirichlet(np.ones(len(names))) * rng.uniform(0.1, 50.0)
+    w[rng.random(len(names)) < 0.2] = 0.0
+    w[0] += 1e-12
+    blend = dict(zip(names, w))
+    ja, jb = ref_sim.JobStream(blend, seed), pt_sim.JobStream(blend, seed)
+    assert [next(ja) for _ in range(3000)] == [next(jb) for _ in range(3000)]
+    other = dict(zip(names, rng.uniform(0.0, 2.0, len(names)) + 1e-9))
+    ja.set_blend(other)
+    jb.set_blend(other)
+    assert [next(ja) for _ in range(500)] == [next(jb) for _ in range(500)]
+    assert ja._rng.bit_generator.state == jb._rng.bit_generator.state
+    for bad in ({"a": 1.0, "b": -0.5}, {"a": 1.0, "b": np.inf},
+                {"a": np.nan}, {}):
+        for mod in (ref_sim, pt_sim):
+            with pytest.raises(ValueError):
+                next(mod.JobStream(bad, seed))
 
 
 def test_poisson_arrivals_and_queue_are_identical():
@@ -396,3 +423,57 @@ def test_expected_improvement_is_identical():
         b = pt_sur.expected_improvement(mean, unc, y_best)
         assert np.array_equal(a, b)
     assert (b >= 0).all()
+
+
+_HIBENCH = ("kmeans", "pagerank", "wordcount")   # sorted, as the benches
+
+
+@pytest.mark.parametrize("kw,crc", [
+    # BENCH_trace.json's 64-tenant smoke trace
+    (dict(jobs=_HIBENCH, n_tenants=64, horizon_s=600.0, seed=64,
+          n_profiles=12), (4136159157, 1711417510)),
+    # tests/golden/trace_seed0.json
+    (dict(jobs=("alpha", "beta", "gamma"), n_tenants=32, horizon_s=1800.0,
+          seed=0), (1544980693, 4291130684)),
+    (dict(jobs=_HIBENCH, n_tenants=16, horizon_s=240.0, seed=7,
+          n_profiles=12), None),
+    (dict(jobs=("a", "b"), n_tenants=5, horizon_s=3000.0, seed=3,
+          n_profiles=3, churn=2.5, phase_changes_per_lifetime=2.0,
+          lifetime_sigma=1.7, priority_classes=(1.0, 4.0)), None),
+    (dict(jobs=_HIBENCH, n_tenants=8, horizon_s=900.0, seed=11,
+          churn=0.0), None),
+])
+def test_trace_copy_is_identical(kw, crc):
+    kw = dict(kw)
+    jobs = kw.pop("jobs")
+    a = ref_trace.synthetic_trace(jobs, **kw)
+    b = pt_trace.synthetic_trace(jobs, **kw)
+    assert [dataclasses.astuple(e) for e in a.events] == \
+        [dataclasses.astuple(e) for e in b.events]
+    assert a.profiles == b.profiles and a.priorities == b.priorities
+    assert a.stats() == b.stats()
+    assert a.concurrency_curve() == b.concurrency_curve()
+    assert [e.tenant for e in a.founding()] == \
+        [e.tenant for e in b.founding()]
+    fa, fb = ref_trace.trace_fingerprint(a), pt_trace.trace_fingerprint(b)
+    assert fa == fb
+    if crc is not None:
+        assert (fb["crc32"], fb["profile_crc32"]) == crc
+    for period in (30.0, 7.5):
+        ta = [(t, [dataclasses.astuple(e) for e in ev])
+              for t, ev in ref_trace.replay_ticks(a, period)]
+        tb = [(t, [dataclasses.astuple(e) for e in ev])
+              for t, ev in pt_trace.replay_ticks(b, period)]
+        assert ta == tb
+
+
+def test_trace_copy_refuses_what_the_reference_refuses():
+    for mod in (ref_trace, pt_trace):
+        with pytest.raises(ValueError):
+            mod.TraceEvent(0.0, "restart", "t0", 0)
+        with pytest.raises(ValueError):
+            mod.TraceEvent(0.0, "arrive", "t0")
+        with pytest.raises(ValueError):
+            mod.synthetic_trace(("a",), n_profiles=1)
+        with pytest.raises(ValueError):
+            list(mod.replay_ticks(mod.synthetic_trace(("a", "b")), 0.0))

@@ -19,7 +19,8 @@ FLAGS = ("per_chain", "dynamic", "extra", "valid", "noisy")
 # walks: path A's and path B's rounds (16 chains x 64 steps on the 4^8 and
 # 6^8 sizing grids, no mask), Fig. 4's sweep (5 seeds x 64 temperatures on
 # 48 states), Fig. 5's time-indexed table, fleet_chains' bucket (1,024 x 32
-# on the paper's 4 x 30 space, per-tenant tables and extra rows)
+# on the paper's 4 x 30 space, per-tenant tables and extra rows), path H's
+# fleet buckets (the 64-state EC2 space, tenants' tables and coupling rows)
 PATHS = {
     "path A round": (16, 64, 16, 4 ** 8, False, False, False, False, False),
     "path B round": (16, 64, 16, 6 ** 8, False, False, False, False, False),
@@ -27,6 +28,10 @@ PATHS = {
     "Fig. 5 table": (1, 6000, 1, 48, False, True, False, False, False),
     "fleet_chains bucket": (1024, 32, 2, 120, True, False, True, False,
                             False),
+    "path H bucket 16": (16, 32, 2, 64, True, False, True, False, False),
+    "path H bucket 32": (32, 32, 2, 64, True, False, True, False, False),
+    "path H bucket 1024": (1024, 32, 2, 64, True, False, True, False,
+                           False),
 }
 
 
@@ -53,6 +58,10 @@ def test_walk_plan_at_the_path_shapes_is_what_the_notes_say():
         "Fig. 5 table": ops.WalkPlan(64, True, 151_840),
         # per-chain rows and extra rows staged a block at a time; S = 32
         "fleet_chains bucket": ops.WalkPlan(32, True, 101_392),
+        # the fleet's per-tenant rows and coupling rows staged at any C
+        "path H bucket 16": ops.WalkPlan(32, True, 87_056),
+        "path H bucket 32": ops.WalkPlan(32, True, 87_056),
+        "path H bucket 1024": ops.WalkPlan(32, True, 87_056),
     }
     for label, shape in PATHS.items():
         assert _plan(*shape) == want[label], label
@@ -104,6 +113,18 @@ def test_walk_plan_takes_the_short_window_past_one_block_an_sm(sms):
     fleet = _plan(65_536, 32, 2, 120, True, False, True, False, False,
                   sms=sms)
     assert fleet == _plan(1024, 32, 2, 120, True, False, True, False, False)
+
+
+@pytest.mark.parametrize("extra", [False, True])
+def test_walk_plan_stages_static_per_chain_tables_at_any_chain_count(extra):
+    """A static per-chain table that fits is staged whatever the number
+    of chains, from one chain to a fleet's largest bucket (reading a
+    few chains' tables unstaged saves microseconds a walk, in fleet
+    rounds of milliseconds: the plan keeps one rule)."""
+    flags = (True, False, extra, False, False)
+    plans = {C: _plan(C, 32, 2, 64, *flags) for C in (1, 4, 16, 32, 2048)}
+    assert all(p.staged and p.window == 32 for p in plans.values()), plans
+    assert len({p.smem for p in plans.values()}) == 1
 
 
 def test_walk_plan_time_indexed_rows_staged_only_while_small():
