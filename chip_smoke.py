@@ -58,6 +58,19 @@ What it does, in order; any failure exits non-zero:
    each round that annealed a chain (none in the others) and at most one
    synchronizing call a round (the read-back), counted by torch's sync
    debug mode while the replay runs;
+5d. path I, the surrogate loop (``repro_torch.figures.surrogate_scale``
+   uncut, the reference's constants): (a) its eight checks on the card in
+   the device loop (the 960-state validation space within 5% at <= 10%
+   of the evaluations, the 1,179,648-state TPU space improved with fewer
+   than 1,000, drift re-converged after a stale refresh), then the
+   validation problem in the host loop; (c) one ``fused_interp`` and one
+   ``anneal_walk`` launch in every device-loop round and at most one
+   synchronizing call (the read-back) in every steady one; (d) each
+   run's warm-up and steady round times and the spans of steady scale
+   rounds, and the store's two flush forms timed; (b) ``fused_interp``
+   on a steady scale round's real refit (Q 32,768, F 9) within
+   ``INTERP_TOL`` of its plain version and ``anneal_walk`` bit-equal on
+   its chains;
 6. path C: the annealed serve loop (``repro_torch.serving.anneal``) on
    qwen3-8b at its full width and depth (36 layers, random bf16 weights
    from a seed): 6 rounds of 24 requests of 512 tokens, 16 new tokens
@@ -101,7 +114,9 @@ What it does, in order; any failure exits non-zero:
    ``pairwise_sqdist`` beside the card's own write of its (Q, M) result
    (``fill_``, cold and warm), the floor of a write-bound kernel; and
    ``anneal_walk`` at path A's round, Fig. 4's sweep, ``fleet_chains``'
-   bucket, path B's round and path H's largest round (its fleet bucket)
+   bucket, path B's round, path H's largest round (its fleet bucket)
+   and a steady path-I scale round, and ``fused_interp`` at path B's
+   chunk and path I's scale refit
    on the inputs those paths gave it, its bytes counted from what
    each walk looked up, beside its latency bound (S dependent loads at
    the latency a one-thread pointer chase measures on the card, the
@@ -116,7 +131,8 @@ With ``--profile`` it also traces a few more rounds of paths A and B with
 ``fused_interp`` launches; its wall time, device busy time, idle share and
 ``fused_interp``'s share of the device time), one burst of paths C's, E's
 and F's workloads at batch 16 (in step 6), the first 8 ticks of path H's
-1,024-tenant replay (in step 5c) and three path-D train steps (in step
+1,024-tenant replay (in step 5c), three steady path-I scale rounds (in
+step 5d) and three path-D train steps (in step
 7), and prints the device's busy time and idle share of each.
 
 It exits with code 2 and prints no result when there is no CUDA device,
@@ -2014,6 +2030,296 @@ def path_h(torch, ops, dev, captured, profile: bool) -> tuple[dict, dict]:
     return launches, timing
 
 
+# -- path I: the surrogate loop ------------------------------------------------
+
+#: path I's workload: ``repro_torch.figures.surrogate_scale`` uncut (the
+#: reference's ``benchmarks/surrogate_scale.py`` constants: the 960-state
+#: validation space, the 1,179,648-state TPU space for 16 rounds of 16
+#: chains x 64 steps, the drift run of 36 rounds), then the validation
+#: problem again in the host loop; ``I_STEADY`` more scale rounds for the
+#: kernels' inputs, the spans and (with ``--profile``) the trace
+I_STEADY = 3
+
+
+@contextlib.contextmanager
+def counted_surrogate_rounds(torch, ops, log: list, keep: dict):
+    """While open, each ``SurrogateAnnealer.round()`` appends a dict to
+    ``log``: the space's size, the loop, the round, its ``fused_interp``
+    and ``anneal_walk`` launches, its synchronizing CUDA calls (torch's
+    sync debug mode, as ``counted_rounds``) and its wall seconds (the round
+    ends in its read-back); ``keep[size]`` holds the last annealer of each
+    space size."""
+    import warnings
+
+    from repro_torch.core.surrogate import SurrogateAnnealer
+
+    real = SurrogateAnnealer.round
+
+    def counted(self):
+        n0 = dict(ops.LAUNCHES)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                out = real(self)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            wall = time.perf_counter() - t0
+        log.append(dict(
+            size=self.space.size(), device_loop=self.device_loop, n=out.n,
+            fused_interp=ops.LAUNCHES["fused_interp"] - n0["fused_interp"],
+            anneal_walk=ops.LAUNCHES["anneal_walk"] - n0["anneal_walk"],
+            syncs=sum("called a synchronizing CUDA operation"
+                      in str(w.message) for w in caught),
+            wall_s=wall))
+        keep[self.space.size()] = self
+        return out
+
+    SurrogateAnnealer.round = counted
+    try:
+        yield
+    finally:
+        SurrogateAnnealer.round = real
+
+
+@contextlib.contextmanager
+def capture_interp(ops, store: dict, label: str):
+    """While open, every ``ops.fused_interp`` call also leaves its inputs
+    in ``store[label]`` (the last call's)."""
+    real = ops.fused_interp
+
+    def spy(*args, **kw):
+        store[label] = (args, kw)
+        return real(*args, **kw)
+
+    ops.fused_interp = spy
+    try:
+        yield
+    finally:
+        ops.fused_interp = real
+
+
+def interp_bound(args) -> dict:
+    """``fused_interp``'s bound: its inputs read once and its two (Q,)
+    outputs written once; per pair the 2F-op dot product, the expansion
+    (3), the IDW weight (2), the recency weight (1), the two running sums
+    (3) and the min (1), plus the 2F-op norms of every row."""
+    xq, xm = args[0], args[1]
+    (Q, F), M = xq.shape, xm.shape[0]
+    return bound(sum(t.numel() * 4 for t in args[:4]) + 2 * Q * 4,
+                 Q * M * (2 * F + 10) + (Q + M) * 2 * F, FP32_OPS_PER_S)
+
+
+def exact_interp(torch, xq, xm, y, w, eps: float = 1e-9, rows: int = 4096):
+    """The IDW estimate, the nearest-measurement distance and that
+    measurement's row, in float64 on the card, each distance summed as
+    squared differences (no expansion, so a query that coincides with a
+    measurement is at exactly 0)."""
+    xm64, y64, w64 = xm.double(), y.double(), w.double()
+    means, dmins, nearest = [], [], []
+    for lo in range(0, xq.shape[0], rows):
+        d2 = ((xq[lo:lo + rows].double()[:, None, :] - xm64[None]) ** 2) \
+            .sum(-1)
+        k = w64[None, :] / (d2 + eps)
+        means.append((k @ y64) / k.sum(1))
+        d2min, arg = d2.min(1)
+        dmins.append(d2min.sqrt())
+        nearest.append(arg)
+    return torch.cat(means), torch.cat(dmins), torch.cat(nearest)
+
+
+def check_interp_at(torch, ops, ref, label, args, kw) -> float:
+    """``fused_interp`` against its plain version, through the exact
+    answer (``exact_interp``): at every query the kernel's estimate is
+    within ``INTERP_TOL`` plus the plain version's own error of the
+    float64 estimate, and its distance within ``INTERP_TOL`` plus the
+    larger of the plain version's error and the float32 expansion's
+    resolution.  Agreement within ``INTERP_TOL`` implies the first, and it
+    is the same check wherever the plain version is exact to within half
+    that bound.  They differ next to a measurement: ``|q|^2 + |m|^2 - 2
+    q.m`` in float32 carries up to E = 2 (F + 2) 2^-24 (|q|^2 + |m|^2) of
+    error (its three fma chains of F terms), so a distance sqrt(d2) is
+    known to min(sqrt(E), E / (2 d)) (a one-step neighbour on the
+    512-value axis, at d = 1.96e-3, lies below sqrt(E)), and two float32
+    evaluations may differ there by more than ``INTERP_TOL``; how many
+    and how far is printed.  At a query equal to a measurement the
+    kernel's distance is exactly 0 (the store predictor's contract: exact
+    at measured states).  Returns the kernel's largest error against the
+    float64 estimate."""
+    got = ops.fused_interp(*args, **kw)
+    want = ref.fused_interp_ref(*args, **kw)
+    xq, xm = args[0].double(), args[1].double()
+    mean_x, dmin_x, nearest = exact_interp(torch, *args,
+                                           eps=kw.get("eps", 1e-9))
+    F = xq.shape[1]
+    e = 2.0 * (F + 2) * 2.0 ** -24 * ((xq * xq).sum(1)
+                                       + (xm * xm).sum(1)[nearest])
+    resolution = torch.minimum(e.sqrt(), e / (2.0 * dmin_x))
+    tol = INTERP_TOL
+    errs = []
+    for out, g, p, x, slack in (("mean", got[0], want[0], mean_x, 0.0),
+                                ("dmin", got[1], want[1], dmin_x,
+                                 resolution)):
+        e_k = (g.double() - x).abs()
+        e_p = (p.double() - x).abs()
+        ok = bool((e_k <= torch.clamp(e_p, min=slack) + tol["atol"]
+                   + tol["rtol"] * x.abs()).all())
+        apart = ~torch.isclose(g, p, **tol)
+        near = dmin_x[apart]
+        where = (f", nearest measurement at {float(near.min()):.3e}-"
+                 f"{float(near.max()):.3e}" if bool(apart.any()) else "")
+        check(ok, f"fused_interp {label} {out}: the kernel's error against "
+                  f"the float64 evaluation within {tol} plus the plain "
+                  f"version's" + (" or the expansion's resolution (up to "
+                                  f"{float(resolution.max()):.3e})"
+                                  if out == "dmin" else "")
+                  + f" at all {x.numel()} queries (kernel's max "
+                  f"{float(e_k.max()):.3e}, plain version's "
+                  f"{float(e_p.max()):.3e}); {int(apart.sum())} queries where "
+                  f"the two float32 evaluations differ by more than the "
+                  f"tolerance (up to {float((g - p).abs().max()):.3e})"
+                  f"{where}")
+        errs.append(float(e_k.max()))
+    co = dmin_x == 0.0
+    check(bool((got[1][co] == 0.0).all()),
+          f"fused_interp {label}: distance exactly 0 at the {int(co.sum())} "
+          f"queries equal to a measurement (the plain version's up to "
+          f"{float(want[1][co].max()):.3e})")
+    return max(errs)
+
+
+def flush_forms_ms(torch, store) -> tuple[float, float]:
+    """The two ways a flush can leave held views alone, timed on
+    ``store``'s buffer with 8 staged rows (a round's adds): scatter into a
+    copy of the buffer (the port's form), against scatter in place and
+    copy the three refit slices a round hands out."""
+    o = store._offsets
+    rows = torch.arange(8, device="cuda")
+    idx = torch.cat([rows * store.ndim, o[2] + rows, o[3] + rows])
+    vals = torch.zeros(idx.numel(), dtype=torch.int32, device="cuda")
+    mb = min(1 << max(0, len(store) - 1).bit_length(), store.cap)
+    buf = store._buf.clone()
+    f32, F = torch.float32, store.encoding.feature_dim
+
+    def in_place():
+        buf.index_put_((idx,), vals)
+        buf[o[1]:o[1] + mb * F].view(f32).clone()
+        buf[o[2]:o[2] + mb].view(f32).clone()
+        buf[o[5]:o[5] + mb].view(f32).clone()
+
+    return (time_ms(torch, lambda: store._buf.index_put((idx,), vals), 200),
+            time_ms(torch, in_place, 200))
+
+
+def path_i(torch, ops, ref, dev, captured, profile: bool
+           ) -> tuple[dict, dict]:
+    """Path I: the surrogate loop.  (a) ``surrogate_scale`` at full size
+    on the card in the device loop, every check passing, then its
+    validation problem in the host loop, passing; (c) each device-loop
+    round one ``fused_interp`` and one ``anneal_walk`` launch, at most one
+    synchronizing call a steady round; (d) round wall times, warm-up and
+    steady, and the spans of steady scale rounds; (b) ``fused_interp``
+    within ``INTERP_TOL`` of its plain version on a steady scale round's
+    refit and ``anneal_walk`` bit-equal on its chains (inputs left in
+    ``captured``); (e) with ``--profile``, steady scale rounds traced.
+    Returns (launches, timings)."""
+    from repro_torch.figures import surrogate_scale as ss
+    from repro_torch.figures.common import Bench
+    from repro_torch.telemetry import spans
+
+    os.environ.setdefault("REPRO_BENCH_OUT",
+                          str(ROOT / "build" / "chip_smoke_figures"))
+    timing = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t_i = time.perf_counter()
+    log, keep = [], {}
+    with counted_surrogate_rounds(torch, ops, log, keep):
+        res = ss.surrogate_scale("cuda", smoke=False)
+        timing["twin_s"] = time.perf_counter() - t_i
+        t0 = time.perf_counter()
+        host = Bench("surrogate_scale host loop", "validation, host loop")
+        val = ss.validation_run(host, False, "cuda", device_loop=False)
+        host_res = host.finish()
+        timing["host_s"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for c in res["checks"] + host_res["checks"]:
+        check(c["ok"], f"path I {c['description']}")
+    ours, theirs = res["numbers"]["ours"], res["numbers"]["reference"]
+    print(f"path I surrogate_scale on the card: {ours}; the reference's "
+          f"BENCH_surrogate.json (its own streams, not checked): {theirs}; "
+          f"host loop: gap {val['gap_pct']:.4f}% with "
+          f"{val['true_measures']} measures")
+    device = [r for r in log if r["device_loop"]]
+    check(all(r["fused_interp"] == 1 and r["anneal_walk"] == 1
+              for r in device),
+          f"path I: one fused_interp and one anneal_walk launch in each of "
+          f"the {len(device)} device-loop rounds")
+    steady = [r for r in device if r["n"] > 0]
+    check(max(r["syncs"] for r in steady) <= 1,
+          f"path I: at most one synchronizing call a steady device-loop "
+          f"round (the read-back): {sum(r['syncs'] for r in steady)} in "
+          f"{len(steady)} rounds; round 0 of each run "
+          f"{[r['syncs'] for r in device if r['n'] == 0]}")
+    sizes = {"validation": 960, "scale": 1_179_648, "drift": 480}
+    for label, size in sizes.items():
+        rs = [r for r in device if r["size"] == size]
+        warm = [r["wall_s"] for r in rs if r["n"] == 0]
+        later = [r["wall_s"] for r in rs if r["n"] > 0]
+        timing[f"{label}_warmup_s"] = warm[0]
+        timing[f"{label}_steady_s"] = sum(later) / len(later)
+        print(f"path I {label} ({size:,} states): {len(rs)} device-loop "
+              f"rounds; warm-up round {1e3 * warm[0]:.3f} ms, steady "
+              f"{1e3 * timing[f'{label}_steady_s']:.3f} ms a round (min "
+              f"{1e3 * min(later):.3f}, max {1e3 * max(later):.3f})")
+    hr = [r["wall_s"] for r in log if not r["device_loop"]]
+    timing["host_loop_steady_s"] = sum(hr[1:]) / max(len(hr) - 1, 1)
+    print(f"path I validation, host loop: {len(hr)} rounds; warm-up "
+          f"{1e3 * hr[0]:.3f} ms, steady "
+          f"{1e3 * timing['host_loop_steady_s']:.3f} ms a round")
+
+    # steady scale rounds: the kernels' inputs, then the spans
+    sa = keep[1_179_648]
+    with capture_walk(ops, captured, "path I round"), \
+            capture_interp(ops, captured, "path I refit"):
+        sa.round()
+    args, kw = captured["path I refit"]
+    (Q, F), M = args[0].shape, args[1].shape[0]
+    timing["interp_err"] = check_interp_at(
+        torch, ops, ref, f"path I scale refit ({Q}x{M}x{F}, {len(sa.store)} "
+                         f"measures)", args, kw)
+    check_walk(torch, ops, ref, "path I round", *captured["path I round"])
+    spans.enable(spans.SpanRecorder(capacity=1 << 16))
+    try:
+        t0 = time.perf_counter()
+        for _ in range(I_STEADY):
+            sa.round()
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3 / I_STEADY
+    finally:
+        rec = spans.disable()
+    per = {}
+    for name, _, _, dur, *_ in rec.spans():
+        per[name] = per.get(name, 0.0) + dur / 1e3 / I_STEADY
+    print(f"path I spans of {I_STEADY} steady scale rounds (window "
+          f"{sa.rounds[-1].window_size:,} states, Q {Q}, M {M}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per.items()))
+          + f" ms a round; {untraced_ms:.3f} ms a round with the recorder")
+    copy_ms, in_place_ms = flush_forms_ms(torch, sa._dstore)
+    print(f"path I store flush (8 rows, {sa._dstore.cap} rows of "
+          f"{sa._dstore._buf.numel() * 4 / 1e3:.0f} KB): scatter into a "
+          f"copy {copy_ms:.4f} ms, scatter in place and copy the three "
+          f"refit slices {in_place_ms:.4f} ms (warm)")
+    if profile:
+        profile_rounds(torch, sa, I_STEADY, "path I (scale, steady)",
+                       untraced_ms)
+    timing["total_s"] = time.perf_counter() - t_i
+    print(f"path I: launches {launches} in the twin and the host loop; "
+          f"{timing['total_s']:.1f} s")
+    return launches, timing
+
+
 #: Bytes the card's memory moves at once (an L2 sector).
 SECTOR = 32
 
@@ -2135,7 +2441,8 @@ def time_walk(torch, ops, ref, build, captured) -> list[dict]:
                                       ("Fig. 4 sweep", 20, 2),
                                       ("fleet_chains bucket", 200, 10),
                                       ("path B round", 200, 10),
-                                      ("path H round", 200, 10)):
+                                      ("path H round", 200, 10),
+                                      ("path I round", 200, 10)):
         args, kw = captured[label]
         inits, _, _, axis = args[:4]
         C, S = axis.shape
@@ -2415,6 +2722,9 @@ def main(argv: list[str]) -> int:
     # -- 5c. path H: the multi-tenant fleet ---------------------------------
     launches_h, timing_h = path_h(torch, ops, dev, captured, profile)
 
+    # -- 5d. path I: the surrogate loop -------------------------------------
+    launches_i, timing_i = path_i(torch, ops, ref, dev, captured, profile)
+
     # -- 6. paths C, E, F: the annealed serve loop at full size ------------
     from repro_torch.configs import get_config
 
@@ -2476,6 +2786,24 @@ def main(argv: list[str]) -> int:
         bound_ms=fi_bound,
         bound_by="bytes" if nb / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S
         else "operations")
+    fi_rows = [dict(name="fused_interp", label="path B grid chunk",
+                    shape=f"Q {Q}, M {M}, F {F}, float32", library_ms=None,
+                    **interp_bound(fi_real),
+                    **{k: records["fused_interp"][k]
+                       for k in ("ms", "plain_ms")})]
+    args_i, kw_i = captured["path I refit"]
+    fi_rows.append(dict(
+        name="fused_interp", label="path I scale refit",
+        shape=f"Q {args_i[0].shape[0]}, M {args_i[1].shape[0]}, F "
+              f"{args_i[0].shape[1]}, float32", library_ms=None,
+        ms=time_cold_ms(torch, lambda: ops.fused_interp(*args_i, **kw_i),
+                        100),
+        plain_ms=time_cold_ms(torch, lambda: ref.fused_interp_ref(
+            *args_i, **kw_i), 10),
+        **interp_bound(args_i)))
+    for row in fi_rows:
+        print_row(row)
+    records["fused_interp"]["shapes"] = record_rows(fi_rows, "fused_interp")
     # the kernel's own cut of the measurements on this card
     split = (ctypes.c_int * 2)()
     build.library("fused_interp").fused_interp_split(
@@ -2536,7 +2864,10 @@ def main(argv: list[str]) -> int:
           f"{timing_h[f'rounds_{H_TENANTS}']} rounds in "
           f"{timing_h[f'wall_{H_TENANTS}_s']:.3f} s, "
           f"{timing_h['ratio']:.2f}x the {H_SMOKE[0]}-tenant replay's "
-          f"{timing_h[f'wall_{H_SMOKE[0]}_s']:.3f} s)")
+          f"{timing_h[f'wall_{H_SMOKE[0]}_s']:.3f} s); path I "
+          f"{timing_i['total_s']:.1f} s (the twin {timing_i['twin_s']:.1f} "
+          f"s; scale rounds {1e3 * timing_i['scale_warmup_s']:.1f} ms "
+          f"warm-up, {1e3 * timing_i['scale_steady_s']:.3f} ms steady)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- 10. the record lines -------------------------------------------------
@@ -2546,7 +2877,9 @@ def main(argv: list[str]) -> int:
                            launches_a["sizing_latency"]),
         "fused_interp": ("src/repro_torch/kernels/csrc/fused_interp.cu",
                          "src/repro/kernels/surrogate_distance.py:162",
-                         launches_b["fused_interp"]),
+                         launches_b["fused_interp"]
+                         + launches_g["fused_interp"]
+                         + launches_i["fused_interp"]),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:132",
                             launches_c["flash_attention"]
@@ -2578,7 +2911,8 @@ def main(argv: list[str]) -> int:
                         "lax.scan; not a pallas_call)",
                         launches_a["anneal_walk"] + launches_b["anneal_walk"]
                         + launches_g["anneal_walk"]
-                        + launches_h["anneal_walk"]),
+                        + launches_h["anneal_walk"]
+                        + launches_i["anneal_walk"]),
     }
     kernels = []
     for name, (source, replaces, launches) in meta.items():

@@ -115,11 +115,14 @@ from .state import (
     cluster_config_from,
 )
 from .surrogate import (
+    DeviceMeasurementStore,
     ExhaustiveSource,
     MeasurementStore,
     ObjectiveSource,
     SpaceEncoding,
+    SurrogateAnnealer,
     SurrogateModel,
+    SurrogateRound,
     SurrogateSource,
     expected_improvement,
     host_interp,
@@ -160,8 +163,9 @@ __all__ = [
     "microservice_config_fn", "sizing_select", "sizing_table_device",
     "ClusterConfig", "ConfigSpace", "Dimension", "EncodedSpace",
     "cluster_config_from",
-    "ExhaustiveSource", "MeasurementStore", "ObjectiveSource",
-    "SpaceEncoding", "SurrogateModel", "SurrogateSource",
+    "DeviceMeasurementStore", "ExhaustiveSource", "MeasurementStore",
+    "ObjectiveSource", "SpaceEncoding", "SurrogateAnnealer",
+    "SurrogateModel", "SurrogateRound", "SurrogateSource",
     "expected_improvement", "host_interp", "window_space",
     "TabuMemory", "TraceReplayController",
 ]

@@ -265,26 +265,38 @@ def _as_encoded(space: ConfigSpace | EncodedSpace) -> EncodedSpace:
     return space.encoded() if isinstance(space, ConfigSpace) else space
 
 
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` without the host waiting on the card: the
+    pageable copy is staged before ``.to`` returns."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev,
+                                                        non_blocking=True)
+
+
 def random_valid_states(
     generator: torch.Generator | None,
     space: ConfigSpace | EncodedSpace,
     n: int,
     device: str | torch.device = "cuda",
+    valid_flat: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """(n, ndim) int32 index vectors uniform over the VALID region."""
+    """(n, ndim) int32 index vectors uniform over the VALID region.
+
+    ``valid_flat``: the valid states' flat indices (int64, ascending) on
+    ``device``, for a caller that keeps them; else they are found from the
+    space's mask and uploaded."""
     dev = resolve_device(device)
     enc = _as_encoded(space)
     if enc.valid_mask is None:
         u = torch.rand((n, enc.ndim), generator=generator, device=dev,
                        dtype=torch.float64)
-        sizes = torch.tensor(enc.shape, dtype=torch.float64, device=dev)
+        sizes = _upload(np.asarray(enc.shape, np.float64), dev)
         return (u * sizes).floor().to(torch.int32)
-    flat = np.flatnonzero(enc.valid_mask.reshape(-1))
-    if flat.size == 0:
+    if valid_flat is None:
+        valid_flat = _upload(np.flatnonzero(enc.valid_mask.reshape(-1)), dev)
+    if valid_flat.numel() == 0:
         raise ValueError("space has no valid states")
-    flat_d = torch.as_tensor(flat, dtype=torch.int64, device=dev)
-    picks = flat_d[torch.randint(0, flat.size, (n,), generator=generator,
-                                 device=dev)]
+    picks = valid_flat[torch.randint(0, valid_flat.numel(), (n,),
+                                     generator=generator, device=dev)]
     cols = []
     for stride in row_major_strides(enc.shape):
         cols.append(picks // stride)
@@ -306,7 +318,7 @@ def _draw(generator, enc: EncodedSpace, C: int, S: int, noise: bool,
     axis = torch.randint(0, enc.ndim, (C, S), generator=generator,
                          device=dev)
     up = torch.rand((C, S), generator=generator, device=dev) < 0.5
-    sizes = torch.tensor(enc.shape, dtype=torch.int64, device=dev)
+    sizes = _upload(np.asarray(enc.shape, np.int64), dev)
     m = torch.clamp(sizes[axis] - 1, min=1)
     u_cat = torch.rand((C, S), generator=generator, device=dev,
                        dtype=torch.float64)
@@ -475,8 +487,8 @@ def anneal_fleet(
         raise ValueError(f"table shape {tuple(y.shape)} != expected {expect} "
                          f"(chains={C}, steps={S}, space={enc.shape})")
     y_flat = y.reshape(lead + time + (-1,))
-    valid_flat = (None if enc.valid_mask is None else torch.as_tensor(
-        enc.valid_mask.reshape(-1), device=dev))
+    valid_flat = (None if enc.valid_mask is None
+                  else _upload(enc.valid_mask.reshape(-1), dev))
 
     extra = None
     if extra_costs is not None:

@@ -1493,3 +1493,119 @@ def test_fleet_rounds_on_card_decide_as_on_host(cuda, incremental):
     card, ctl, walks = replay("cuda")
     assert card == host
     assert walks == sum(r["n_annealed"] > 0 for r in ctl.rounds)
+
+
+def _surrogate_space(valid=True):
+    from repro_torch.core.state import ConfigSpace, Dimension
+
+    return ConfigSpace(
+        (Dimension("n", tuple(range(1, 41))),
+         Dimension("c", ("a", "b", "c"), kind="categorical"),
+         Dimension("tp", (1, 2, 4))),
+        is_valid=(lambda cfg: cfg["n"] % cfg["tp"] == 0) if valid else None)
+
+
+def _surrogate_fn(cfg):
+    return (abs(cfg["n"] - 27) * 0.7
+            + {"a": 3.0, "b": 0.0, "c": 1.5}[cfg["c"]] + 0.9 * cfg["tp"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity", [8192, 16])
+def test_device_store_on_card_equals_store_on_cpu(cuda, capacity):
+    """The same adds (flushed at random points, evictions included) leave
+    the card's store row for row equal to the CPU's; its readers agree
+    (the decay within float32 exp2's rounding)."""
+    import numpy as np
+
+    from repro_torch.core.surrogate import DeviceMeasurementStore, SpaceEncoding
+
+    enc = SpaceEncoding.from_space(_surrogate_space())
+    stores = [DeviceMeasurementStore(enc, half_life=3.0, capacity=capacity,
+                                     device=d) for d in ("cpu", "cuda")]
+    rng = np.random.default_rng(4)
+    for i in range(200):
+        s = (int(rng.integers(40)), int(rng.integers(3)),
+             int(rng.integers(3)))
+        y, t = float(rng.normal() * 5.0), float(i // 4)
+        for st in stores:
+            st.add(s, y, t)
+        if rng.random() < 0.2:
+            for st in stores:
+                st.flush()
+    host, card = stores
+    for st in stores:
+        st.flush()
+    assert card._buf.device.type == "cuda"
+    assert torch.equal(card._buf.cpu(), host._buf)
+    assert card.best(now=49.0, max_age=12.0) == host.best(now=49.0,
+                                                          max_age=12.0)
+    assert torch.equal(card.y_scale_device().cpu(), host.y_scale_device())
+    torch.testing.assert_close(card.weights_device(49.0).cpu(),
+                               host.weights_device(49.0), rtol=1e-6, atol=0)
+    for a, b in zip(card.snapshot(), host.snapshot()):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acquisition", ["lcb", "ei"])
+@pytest.mark.parametrize("n_exp", [0, 1, 7])
+def test_select_on_card_equals_select_on_cpu(cuda, acquisition, n_exp):
+    """``_select``'s picks on the card equal the CPU's on the same float32
+    inputs (means about y_best and uncertainties of at least 1, so every
+    EI lies far from a tie its erf's last bit could flip)."""
+    import numpy as np
+
+    from repro_torch.core.surrogate import _select
+
+    shape, m = (7, 3, 5), 8
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        W = int(np.prod(shape))
+        flat = rng.integers(0, W if seed % 2 else 12, (16, 25))
+        idx = torch.from_numpy(np.stack(np.unravel_index(flat, shape),
+                                        -1).astype(np.int32))
+        mean = torch.from_numpy(np.round(rng.normal(4.0, 1.0, W) * 4) / 4) \
+            .float()
+        unc = torch.from_numpy(1.0 + np.abs(rng.normal(0.0, 1.0, W))).float()
+        got = [_select(idx[:, 0].to(d), idx[:, 1:].to(d), mean.to(d),
+                       unc.to(d), shape=shape, acquisition=acquisition,
+                       m=m, n_exp=n_exp, kappa=0.5 + seed, y_best=4.0)
+               for d in ("cpu", cuda)]
+        assert got[1].device.type == "cuda"
+        assert torch.equal(got[1].cpu(), got[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acquisition", ["lcb", "ei"])
+def test_surrogate_round_on_card_one_sync_and_one_launch_each(cuda,
+                                                              acquisition):
+    """A steady device-loop round: one ``fused_interp`` and one
+    ``anneal_walk`` launch, and at most one synchronizing call (the
+    decision packet's read-back), counted by torch's sync debug mode."""
+    import warnings
+
+    from repro_torch.core import MeasurementStore, SurrogateAnnealer
+
+    sa = SurrogateAnnealer(_surrogate_space(), _surrogate_fn, half_width=5,
+                           n_chains=16, steps_per_round=32,
+                           measures_per_round=5, seed=3,
+                           acquisition=acquisition,
+                           store=MeasurementStore(3, half_life=2.0),
+                           device="cuda")
+    sa.run(2)
+    for _ in range(4):
+        n0 = dict(ops.LAUNCHES)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sa.round()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+        assert ops.LAUNCHES["fused_interp"] - n0["fused_interp"] == 1
+        assert ops.LAUNCHES["anneal_walk"] - n0["anneal_walk"] == 1
+        assert syncs <= 1
+    assert sa.stale_refreshes >= 1          # the drift rule's round ran too
